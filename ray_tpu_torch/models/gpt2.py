@@ -1,0 +1,273 @@
+"""GPT-2 in PyTorch, forward only (port of ``ray_tpu/models/gpt2.py``).
+
+The module tree mirrors the flax parameter tree name for name (``wte``,
+``wpe``, ``h_{i}.{ln_1, attn.{qkv, attn_out}, ln_2, mlp.{mlp_up,
+mlp_down}}``, ``ln_f``, ``lm_head``), so ``models/convert.py`` carries the
+reference's weights across key by key.  Linear and embedding weights are
+stored in the serving dtype, cast once when they are loaded (the reference
+keeps float32 params and casts them on every call: the values are the
+same); the LayerNorm scale and bias stay float32, because the reference
+normalises in float32.
+
+Parity with the reference, each visible below: flax ``nn.gelu`` is the
+tanh approximation; the LayerNorm eps is 1e-6; flax ``Dense.kernel`` is
+``[in, out]`` where ``Linear.weight`` is ``[out, in]`` (convert.py
+transposes); the fused qkv projection splits into q|k|v column blocks and
+each into contiguous heads; ``lm_head`` has no bias and is not tied to
+``wte``.
+
+The inference plane (``prefill_forward``, ``decode_forward``,
+``sample_logits``) takes the module itself; the serving engine owns the
+paged KV cache.  Training (loss, AdamW, the backward attention kernels)
+is a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.ops.attention import causal_attention
+
+_LN_EPS = 1e-6  # flax.linen.LayerNorm default
+_NEG = -1e30
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50304  # 50257 padded to a multiple of 128
+    n_layer: int = 12
+    n_head: int = 12
+    d_model: int = 768
+    max_seq_len: int = 1024
+    dtype: torch.dtype = torch.bfloat16  # serving dtype of linear/embedding weights
+    use_bias: bool = True
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_head
+
+    @staticmethod
+    def tiny(**kw) -> "GPT2Config":
+        return GPT2Config(vocab_size=512, n_layer=2, n_head=4, d_model=128, max_seq_len=128, **kw)
+
+    @staticmethod
+    def small(**kw) -> "GPT2Config":
+        return GPT2Config(**kw)  # 124M
+
+    @staticmethod
+    def medium(**kw) -> "GPT2Config":
+        return GPT2Config(n_layer=24, n_head=16, d_model=1024, **kw)  # 350M
+
+    @staticmethod
+    def large(**kw) -> "GPT2Config":
+        return GPT2Config(n_layer=36, n_head=20, d_model=1280, **kw)  # 774M
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.qkv = nn.Linear(cfg.d_model, 3 * cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
+        self.attn_out = nn.Linear(cfg.d_model, cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.mlp_up = nn.Linear(cfg.d_model, 4 * cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
+        self.mlp_down = nn.Linear(4 * cfg.d_model, cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.mlp_down(F.gelu(self.mlp_up(h), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.ln_1 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
+        self.attn = Attention(cfg)
+        self.ln_2 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
+        self.mlp = MLP(cfg)
+
+
+class GPT2(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, dtype=cfg.dtype)
+        for i in range(cfg.n_layer):
+            self.add_module(f"h_{i}", Block(cfg))
+        self.ln_f = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
+        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False, dtype=cfg.dtype)
+
+    def blocks(self) -> List[Block]:
+        return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, T] -> logits [B, T, vocab]."""
+        x, _, _ = _forward_prompt(self, tokens)
+        return self.lm_head(x)
+
+
+def init_model(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
+               device: Union[str, torch.device] = "cuda") -> GPT2:
+    """Synthetic weights from ``generator`` at the scales of flax's default
+    initialisers: normal draws with std 1/sqrt(fan_in) for Dense kernels
+    and 1/sqrt(d_model) for embeddings, zero biases, unit LayerNorm scale.
+    Drawn in float32 and cast once to the serving dtype; returns the model
+    in eval mode.  The draws are not the reference's (different RNGs):
+    carry its weights across with ``models/convert.py`` for parity."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = GPT2(cfg)
+    model = model.to_empty(device=dev)
+    gen_dev = generator.device if generator is not None else dev
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                continue
+            if isinstance(mod, nn.Embedding):
+                std = 1.0 / math.sqrt(mod.embedding_dim)
+            elif isinstance(mod, nn.Linear):
+                std = 1.0 / math.sqrt(mod.in_features)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            else:
+                continue
+            w = torch.randn(mod.weight.shape, generator=generator, device=gen_dev,
+                            dtype=torch.float32)
+            mod.weight.copy_(w * std)
+    return model.eval()
+
+
+def num_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+# ----------------------------------------------------------------------
+# Inference plane: prefill / single-token decode with an external KV cache.
+# ----------------------------------------------------------------------
+def _ln(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+
+
+def _qkv(blk: Block, x: torch.Tensor, cfg: GPT2Config):
+    """ln_1 -> fused qkv projection -> (q, k, v), each [..., H, Dh]: views
+    of the projection's output, which the flash kernel reads through their
+    strides."""
+    qkv = blk.attn.qkv(_ln(x, blk.ln_1, cfg.dtype))
+    return tuple(t.unflatten(-1, (cfg.n_head, cfg.d_head))
+                 for t in qkv.split(cfg.d_model, dim=-1))
+
+
+def _forward_prompt(model: GPT2, tokens: torch.Tensor):
+    """Causal forward over whole prompts from position 0: the final
+    hidden states after ln_f, and each layer's K and V [B, T, H, Dh]."""
+    cfg = model.cfg
+    B, T = tokens.shape
+    pos = torch.arange(T, device=tokens.device)
+    x = model.wte(tokens) + model.wpe(pos)[None]
+    ks, vs = [], []
+    for blk in model.blocks():
+        q, k, v = _qkv(blk, x, cfg)
+        att = causal_attention(q, k, v).reshape(B, T, cfg.d_model)
+        x = x + blk.attn.attn_out(att)
+        x = x + blk.mlp(_ln(x, blk.ln_2, cfg.dtype))
+        ks.append(k)
+        vs.append(v)
+    return _ln(x, model.ln_f, cfg.dtype), ks, vs
+
+
+def prefill_forward(model: GPT2, tokens: torch.Tensor,
+                    last_index: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-prompt forward from position 0.
+
+    tokens [B, T] -> (logits_last [B, vocab], k [L, B, T, H, Dh],
+    v [L, B, T, H, Dh]).  ``last_index`` [B] selects which position's
+    logits to return (for right-padded prompts); default the final one.
+    """
+    B = tokens.shape[0]
+    x, ks, vs = _forward_prompt(model, tokens)
+    if last_index is None:
+        x_last = x[:, -1, :]
+    else:
+        x_last = x[torch.arange(B, device=x.device), last_index.long()]
+    return model.lm_head(x_last), torch.stack(ks), torch.stack(vs)
+
+
+def decode_forward(model: GPT2, tok: torch.Tensor, pos: torch.Tensor, k_ctx: torch.Tensor,
+                   v_ctx: torch.Tensor, ctx_mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step over an externally gathered KV context.
+
+    tok [B] current token ids; pos [B] their positions; k_ctx/v_ctx
+    [L, B, C, H, Dh] the cached keys/values (ctx_mask [B, C] marks real
+    entries).  Returns (logits [B, vocab], k_new [L, B, H, Dh],
+    v_new [L, B, H, Dh]) for the caller to write at position pos.  The
+    new token's own score is appended after the context scores before the
+    float32 softmax, and the probabilities are cast to the dtype before
+    P.V, as in the reference.
+    """
+    cfg = model.cfg
+    B = tok.shape[0]
+    scale = 1.0 / math.sqrt(cfg.d_head)
+    x = model.wte(tok) + model.wpe(pos)
+    k_news, v_news = [], []
+    for i, blk in enumerate(model.blocks()):
+        q, k, v = _qkv(blk, x, cfg)  # [B, H, Dh]
+        s_ctx = torch.einsum("bhd,bchd->bhc", q, k_ctx[i]).float() * scale
+        s_ctx = s_ctx.masked_fill(~ctx_mask[:, None, :], _NEG)
+        s_self = (q * k).sum(-1).float()[..., None] * scale
+        probs = torch.softmax(torch.cat([s_ctx, s_self], dim=-1), dim=-1).to(cfg.dtype)
+        att = torch.einsum("bhc,bchd->bhd", probs[..., :-1], v_ctx[i])
+        att = att + probs[..., -1:] * v
+        x = x + blk.attn.attn_out(att.reshape(B, cfg.d_model))
+        x = x + blk.mlp(_ln(x, blk.ln_2, cfg.dtype))
+        k_news.append(k)
+        v_news.append(v)
+    logits = model.lm_head(_ln(x, model.ln_f, cfg.dtype))
+    return logits, torch.stack(k_news), torch.stack(v_news)
+
+
+def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  temperature: torch.Tensor, top_k: int = 0) -> torch.Tensor:
+    """Per-sequence sampling: temperature <= 0 means greedy (argmax);
+    otherwise softmax sampling at that temperature (Gumbel-max over noise
+    drawn from ``generator``), optionally truncated to the ``top_k``
+    highest-probability tokens (static; 0 = off).
+
+    logits [B, V], temperature [B] -> token ids [B] (int64).  Greedy
+    matches the reference token for token; sampled tokens match it only in
+    distribution, since the two frameworks draw different random bits.
+    """
+    logits = logits.float()
+    greedy = logits.argmax(dim=-1)
+    scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    if 0 < top_k < logits.shape[-1]:
+        kth = scaled.topk(top_k, dim=-1).values[:, -1:]
+        scaled = scaled.masked_fill(scaled < kth, _NEG)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    sampled = (scaled + gumbel).argmax(dim=-1)
+    return torch.where(temperature > 0.0, sampled, greedy)
+
+
+@torch.inference_mode()
+def generate_greedy(model: GPT2, tokens: torch.Tensor, n_new: int) -> torch.Tensor:
+    """Reference full-forward greedy generation (no KV cache): re-runs the
+    model over the growing sequence.  O(T^2) per token: the test oracle."""
+    out = tokens
+    for _ in range(n_new):
+        nxt = model(out)[:, -1, :].argmax(dim=-1)
+        out = torch.cat([out, nxt[:, None].to(out.dtype)], dim=1)
+    return out[:, tokens.shape[1]:]

@@ -1,0 +1,134 @@
+"""Paged KV cache accounting (reference: vLLM BlockSpaceManager; the
+port's copy of ``ray_tpu/serve/llm/kv_cache.py``, numpy only).
+
+The physical storage is two preallocated tensors per deployment —
+``k_pages``/``v_pages`` of shape ``[n_layer, num_blocks * block_size,
+n_head, d_head]`` held by the engine on its device — and this module owns
+the *logical* side: a fixed pool of fixed-size blocks, a per-sequence
+block table, and the position -> physical-slot mapping the engine's steps
+gather and write through.
+
+Invariants (enforced, and what tests/test_torch_serve_llm.py audits):
+
+- block 0 is a reserved scratch block: padded gather lanes read it and
+  inactive decode lanes write it, so it is never allocated to a sequence;
+- a sequence's whole need (prompt + max new tokens) is reserved at
+  admission — a sequence admitted once can never die of pool exhaustion
+  mid-decode;
+- every allocate is balanced by exactly one free (completion, cancel, or
+  disconnect), so ``blocks_in_use`` returns to 0 when the engine drains.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+
+class NoFreeBlocksError(RuntimeError):
+    """The pool cannot hold the requested sequence right now."""
+
+
+class BlockManager:
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # LIFO free list keeps recently-freed (cache-warm) blocks hot
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._tables: Dict[str, List[int]] = {}
+        self._lens: Dict[str, int] = {}
+        self.total_allocs = 0
+        self.total_frees = 0
+
+    # -- capacity --------------------------------------------------------
+    def blocks_needed(self, ntokens: int) -> int:
+        return -(-max(1, ntokens) // self.block_size)
+
+    def can_allocate(self, ntokens: int) -> bool:
+        return self.blocks_needed(ntokens) <= len(self._free)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def blocks_in_use(self) -> int:
+        return (self.num_blocks - 1) - len(self._free)
+
+    @property
+    def num_slots(self) -> int:
+        return self.num_blocks * self.block_size
+
+    # -- sequence lifecycle ---------------------------------------------
+    def allocate(self, seq_id: str, ntokens: int) -> None:
+        """Reserve blocks covering ``ntokens`` positions for seq_id."""
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already allocated")
+        need = self.blocks_needed(ntokens)
+        if need > len(self._free):
+            raise NoFreeBlocksError(
+                f"need {need} blocks for {ntokens} tokens, {len(self._free)} free"
+            )
+        self._tables[seq_id] = [self._free.pop() for _ in range(need)]
+        self._lens[seq_id] = 0
+        self.total_allocs += 1
+
+    def advance(self, seq_id: str, ntokens: int = 1) -> None:
+        """Mark ``ntokens`` more positions of seq_id as written."""
+        table = self._tables[seq_id]
+        new_len = self._lens[seq_id] + ntokens
+        if new_len > len(table) * self.block_size:
+            raise NoFreeBlocksError(
+                f"sequence {seq_id!r} grew past its reservation "
+                f"({new_len} > {len(table) * self.block_size})"
+            )
+        self._lens[seq_id] = new_len
+
+    def free(self, seq_id: str) -> int:
+        """Return seq_id's blocks to the pool; idempotent (0 on repeat)."""
+        table = self._tables.pop(seq_id, None)
+        self._lens.pop(seq_id, None)
+        if table is None:
+            return 0
+        self._free.extend(table)
+        self.total_frees += 1
+        return len(table)
+
+    def blocks_held(self, seq_id: str) -> int:
+        """Blocks currently reserved by seq_id (0 when unknown) — the
+        fair queue's per-tenant KV usage signal."""
+        table = self._tables.get(seq_id)
+        return len(table) if table is not None else 0
+
+    # -- position -> physical slot mapping ------------------------------
+    def seq_len(self, seq_id: str) -> int:
+        return self._lens.get(seq_id, 0)
+
+    def phys_index(self, seq_id: str, pos: int) -> int:
+        """Physical slot of position ``pos`` (0-based) of seq_id."""
+        table = self._tables[seq_id]
+        return table[pos // self.block_size] * self.block_size + pos % self.block_size
+
+    def phys_indices(self, seq_id: str, upto: int, width: int) -> np.ndarray:
+        """Physical slots for positions [0, upto), right-padded with the
+        scratch slot 0 to ``width`` (the decode gather's fixed shape)."""
+        out = np.zeros(width, dtype=np.int32)
+        table = self._tables[seq_id]
+        bs = self.block_size
+        for p in range(min(upto, width)):
+            out[p] = table[p // bs] * bs + p % bs
+        return out
+
+    def leak_report(self) -> Dict[str, int]:
+        """Accounting snapshot for the zero-leak assertions."""
+        return {
+            "blocks_in_use": self.blocks_in_use,
+            "live_sequences": len(self._tables),
+            "total_allocs": self.total_allocs,
+            "total_frees": self.total_frees,
+        }
