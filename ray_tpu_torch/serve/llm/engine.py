@@ -129,7 +129,7 @@ class LLMEngine:
         self._tok_window: Deque[tuple] = collections.deque(maxlen=512)
         self._total_tokens = 0
         self._shed_total = 0
-        self._last_metrics_push = 0.0
+        self._last_tick = 0.0
         # -- overload armor state --
         self._seq_counter = 0
         # False -> every waiting request is anonymous default-tenant
@@ -247,7 +247,7 @@ class LLMEngine:
 
     def _shed(self, message: str, retry_after_s: float = 1.0) -> None:
         self._shed_total += 1
-        self._push_metrics(force=True)
+        self._control_tick(force=True)
         raise RequestShedError(message, retry_after_s=retry_after_s)
 
     async def add_request(
@@ -369,10 +369,6 @@ class LLMEngine:
             "events": list(self._events),
         }
 
-    def queued_depth(self) -> int:
-        """Autoscaling signal: requests in the engine (waiting + lanes)."""
-        return len(self.waiting) + sum(1 for r in self.slots if r is not None)
-
     # -- step loop -------------------------------------------------------
     async def _run(self):
         loop = asyncio.get_running_loop()
@@ -381,7 +377,7 @@ class LLMEngine:
                 self._reap()
                 await self._join_waiters(loop)
                 if not any(r is not None for r in self.slots):
-                    self._push_metrics()
+                    self._control_tick()
                     if not self.waiting:
                         self._wake.clear()
                         try:
@@ -394,7 +390,7 @@ class LLMEngine:
                         await asyncio.sleep(0.005)
                     continue
                 await self._decode_once(loop)
-                self._push_metrics()
+                self._control_tick()
                 # step boundary: let pending add_request/cancel callbacks run
                 await asyncio.sleep(0)
             except asyncio.CancelledError:
@@ -692,14 +688,14 @@ class LLMEngine:
         vals = sorted(self._ttft_recent)
         return vals[min(len(vals) - 1, int(0.95 * len(vals)))]
 
-    def _push_metrics(self, force: bool = False):
+    def _control_tick(self, force: bool = False):
         """The 1 Hz control tick: drives the brownout ladder (inert when
-        ``slo_ttft_s`` is 0).  The reference also exports its gauges here;
-        telemetry is not ported yet."""
+        ``slo_ttft_s`` is 0).  The reference exports its telemetry gauges
+        on the same tick (``_push_metrics``); telemetry is not ported yet."""
         now = time.time()
-        if not force and now - self._last_metrics_push < 1.0:
+        if not force and now - self._last_tick < 1.0:
             return
-        self._last_metrics_push = now
+        self._last_tick = now
         if self._degrade.enabled:
             before = self._degrade.level
             level = self._degrade.tick(self._ttft_p95(), len(self.waiting))
