@@ -23,8 +23,10 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 
 @pytest.fixture(scope="module")
 def pair():
-    """(jax cfg, jax params, port model) holding the same float32 weights."""
-    jcfg = jgpt2.GPT2Config.tiny(dtype=jnp.float32)
+    """(jax cfg, jax params, port model) holding the same float32 weights.
+    remat only trades memory for recompute in training: off here, where it
+    would only slow the reference's eager forward passes."""
+    jcfg = jgpt2.GPT2Config.tiny(dtype=jnp.float32, remat=False)
     params = jgpt2.init_params(jcfg, rng=jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     tree = jax.tree_util.tree_map(
@@ -145,6 +147,7 @@ def test_temperature_sampling_matches_softmax_distribution():
 def test_generate_greedy_matches(pair):
     jcfg, params, model = pair
     toks = _tokens(1, 6, jcfg.vocab_size, seed=6)
-    ref = jgpt2.generate_greedy(params, jcfg, jnp.asarray(toks), 8)
-    got = tgpt2.generate_greedy(model, torch.from_numpy(toks).long(), 8)
+    # the reference re-runs its eager forward at every new length: keep it short
+    ref = jgpt2.generate_greedy(params, jcfg, jnp.asarray(toks), 4)
+    got = tgpt2.generate_greedy(model, torch.from_numpy(toks).long(), 4)
     assert got.tolist() == np.asarray(ref).tolist()
