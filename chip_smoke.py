@@ -6,20 +6,36 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. device   — require CUDA; print the card's name and power limit.
-2. build    — build every kernel from the sources in the checkout
-              (one nvcc per source, all started together).
-3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the shapes the serving path gives it, then timed beside
-              its plain version, its roofline bound and one library call.
-4. parity   — GPT-2 small at full width in float32: the engine's greedy
-              tokens equal the full-forward generate_greedy oracle's.
-5. serve    — the main path: GPT-2 small in bfloat16 serving 16
-              concurrent requests through LLMEngine; every request ends
-              with its max_tokens, no KV block leaks, and the flash kernel
-              launched n_layer times per prefill.
-6. profile  — the same traffic under torch.profiler (device busy share,
-              time by kernel) and one T=1024 prefill timed alone.
+1. device       — require CUDA; print the card's name and power limit.
+2. build        — build every kernel from the sources in the checkout
+                  (one nvcc per source, all started together).
+3. kernels      — the flash forward (B1) against its plain PyTorch version
+                  on the card at the shapes the serving path gives it,
+                  then timed beside its plain version, its roofline bound
+                  and one library call.
+4. bwd kernels  — the flash backward kernels (B2 dq, B3 dkv) against their
+                  plain versions at the same shapes; B1, B2 and B3 timed at
+                  the training shape [16, 1024, 12, 64] bf16 causal beside
+                  their plain versions, bounds and the library's attention.
+5. parity       — GPT-2 small at full width in float32: the engine's greedy
+                  tokens equal the full-forward generate_greedy oracle's.
+6. serve        — the serving path: GPT-2 small in bfloat16 serving 16
+                  concurrent requests through LLMEngine; every request ends
+                  with its max_tokens, no KV block leaks, and the flash
+                  kernel launched n_layer times per prefill.
+7. profile      — the same traffic under torch.profiler (device busy share,
+                  time by kernel) and one T=1024 prefill timed alone.
+8. train parity — one float32 AdamW step of GPT-2 small at full width
+                  (B=2, T=128) on the card (kernels) and on the CPU (plain
+                  versions) from the same weights: loss, every gradient,
+                  every parameter after the step.
+9. train        — the training path (bench.py's configuration): GPT-2 small,
+                  float32 params with bfloat16 compute, B=16, T=1024, AdamW
+                  lr 3e-4; 3 warm-up and 10 timed steps with a finite,
+                  falling loss and B1 = B2 = B3 = n_layer launches a step;
+                  one remat step (B1 twice a layer, the same loss); step
+                  time, tokens/s, MFU, and the device's idle share and time
+                  by kernel under torch.profiler.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -28,7 +44,9 @@ limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import asyncio
+import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,11 +66,21 @@ from ray_tpu_torch.serve.llm.engine import FINISHED
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-KERNEL_SOURCES = ("flash_fwd",)
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 PROMPT_VOCAB = 50257  # GPT-2's tokenizer; the model's 50304 rows pad it
 PARITY_LENS = (5, 37, 130, 300)
-# the main path's 16 prompts: every prefill bucket from 8 to 1024
+# the serving path's 16 prompts: every prefill bucket from 8 to 1024
 SERVE_LENS = (5, 12, 30, 60, 100, 200, 300, 400, 520, 600, 700, 800, 900, 960, 20, 45)
+# the training path: bench.py's GPT-2 small configuration
+TRAIN_B, TRAIN_T, TRAIN_LR = 16, 1024, 3e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# kernel-vs-plain cases, (T, dtype, causal, D, fused q/k/v): the prefill
+# buckets' range with ragged 100, both dtypes, one non-causal case and
+# D=128 per dtype
+_DTYPES = (torch.bfloat16, torch.float32)
+KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]
+                + [(100, dt, False, 64, False) for dt in _DTYPES]
+                + [(256, dt, True, 128, False) for dt in _DTYPES])
 
 
 def _card() -> str:
@@ -121,12 +149,6 @@ def _time_ms(fn, reps: int = 20, rounds: int = 7) -> float:
 def phase_kernels(card: str) -> dict:
     """The flash forward against its plain version; returns its record
     (launches are filled in by the serving phase)."""
-    # (T, dtype, causal, D, fused): the prefill buckets' range, ragged 100,
-    # both dtypes, one non-causal case per dtype, D=128 per dtype
-    cases = [(T, dt, True, 64, True) for T in (8, 100, 256, 1024)
-             for dt in (torch.bfloat16, torch.float32)]
-    cases += [(100, dt, False, 64, False) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(256, dt, True, 128, False) for dt in (torch.bfloat16, torch.float32)]
     # f32: both sides compute in f32 and differ only in summation order.
     # bf16: the kernel rounds P to bf16 before P.V (relative 2^-9 per
     # probability) where the plain version keeps f32, and both round O
@@ -134,7 +156,7 @@ def phase_kernels(card: str) -> dict:
     # rounding.  The LSE is f32 on both sides.
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
     main_err = None
-    for i, (T, dt, causal, D, fused) in enumerate(cases):
+    for i, (T, dt, causal, D, fused) in enumerate(KERNEL_CASES):
         q, k, v = _qkv(T, 12, D, dt, fused, seed=i)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -162,32 +184,158 @@ def phase_kernels(card: str) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    elt = q.element_size()
-    bytes_moved = 3 * B * T * H * D * elt + B * T * H * D * elt + B * H * T * 4
-    flops = 4 * B * H * D * (T * (T + 1) // 2)  # QK^T and PV over the causal pairs
+    rec = _record("flash_attention_fwd", "serve", (B, T, H, D), ms, plain_ms, library_ms,
+                  *_fwd_work(B, T, H, D), main_err[0], max_abs_err_lse=main_err[1])
+    _print_record("kernels", rec, card)
+    return rec
+
+
+# the kernels' sources and the TPU kernels they replace
+_SOURCES = {
+    "flash_attention_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                            "ray_tpu/ops/pallas_attention.py:54"),
+    "flash_attention_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                           "ray_tpu/ops/pallas_attention.py:136"),
+    "flash_attention_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                            "ray_tpu/ops/pallas_attention.py:172"),
+}
+
+
+def _causal_pairs(T: int) -> int:
+    return T * (T + 1) // 2
+
+
+def _fwd_work(B, T, H, D, elt=2):
+    """(FLOPs, bytes) of B1: QK^T and PV over the causal pairs; q, k, v
+    read once, O and the f32 LSE written once."""
+    return 4 * B * H * D * _causal_pairs(T), 4 * B * T * H * D * elt + B * H * T * 4
+
+
+def _dq_work(B, T, H, D, elt=2):
+    """B2: QK^T, dO V^T and dS K; q, k, v, dO, LSE, Delta in, dQ out."""
+    return 6 * B * H * D * _causal_pairs(T), 5 * B * T * H * D * elt + 2 * B * H * T * 4
+
+
+def _dkv_work(B, T, H, D, elt=2):
+    """B3: K Q^T, V dO^T, P^T dO and dS^T Q; the same inputs, dK and dV out."""
+    return 8 * B * H * D * _causal_pairs(T), 6 * B * T * H * D * elt + 2 * B * H * T * 4
+
+
+def _record(name, path, shape, ms, plain_ms, library_ms, flops, bytes_moved, err, **extra):
+    """One kernel's entry of the JSON line; launches are filled in by the
+    phase that drives its path."""
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    rec = {
-        "name": "flash_attention_fwd",
+    source, replaces = _SOURCES[name]
+    return {
+        "name": name,
         "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/pallas_attention.py:54",
+        "source": source,
+        "replaces": replaces,
+        "path": path,
         "launches": None,
-        "max_abs_err": main_err[0],
-        "max_abs_err_lse": main_err[1],
+        "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
-        "at": f"[B, T, H, D] = [{B}, {T}, {H}, {D}] bfloat16 causal",
+        "at": "[B, T, H, D] = [%d, %d, %d, %d] bfloat16 causal" % shape,
+        "gflop": flops / 1e9,
+        "mb": bytes_moved / 1e6,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        **extra,
     }
-    print(f"[kernels] flash_fwd @ [1,1024,12,64] bf16 causal: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}; {flops / 1e9:.3f} GFLOP, {bytes_moved / 1e6:.3f} MB), "
-          f"{rec['achieved_tflops']:.2f} TFLOP/s — {card}", flush=True)
-    return rec
+
+
+def _print_record(tag: str, rec: dict, card: str) -> None:
+    print(f"[{tag}] {rec['name']} @ {rec['at']}: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['gflop']:.3f} GFLOP, "
+          f"{rec['mb']:.3f} MB), {rec['achieved_tflops']:.2f} TFLOP/s — {card}", flush=True)
+
+
+def _rel(got: torch.Tensor, ref: torch.Tensor):
+    """(max |got - ref|, that over max |ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / ref.float().abs().max().item()
+
+
+def phase_bwd_kernels(card: str) -> list:
+    """The backward kernels against their plain versions, then B1, B2 and
+    B3 timed at the training shape; returns their records."""
+    # Relative to max |ref| of each gradient (their scale varies with T and
+    # the inputs).  f32: both sides compute in f32 in another summation
+    # order.  bf16: the kernels round P and dS to bf16 before their products
+    # (2^-9 relative per entry) where the plain version keeps f32, and both
+    # round each output once to bf16 (2^-8 relative at most): 1e-2.
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    main_err = {}
+    for i, (T, dt, causal, D, fused) in enumerate(KERNEL_CASES):
+        q, k, v = _qkv(T, 12, D, dt, fused, seed=100 + i)
+        do = _qkv(T, 12, D, dt, False, seed=200 + i)[0]
+        o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+        errs = [_rel(a, b) for a, b in zip(got, ref)]
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        ok = finite and all(rel <= tol[dt] for _, rel in errs)
+        print(f"[bwd kernels] T={T:5d} {str(dt)[6:]:8s} causal={int(causal)} D={D:3d} "
+              f"{'fused' if fused else 'contig'}: max|err|/max|ref| dq {errs[0][1]:.3e} "
+              f"dk {errs[1][1]:.3e} dv {errs[2][1]:.3e} (tol {tol[dt]:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with its plain version at T={T} {dt}")
+        if (T, dt, causal, D) == (1024, torch.bfloat16, True, 64):
+            main_err = {"dq": errs[0], "dk": errs[1], "dv": errs[2]}
+
+    # timing at the training shape: q/k/v views of the fused projection,
+    # dO contiguous (as autograd hands it over), O and LSE from B1
+    B, T, H, D = TRAIN_B, TRAIN_T, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(300)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa._delta(o, do)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    shape = (B, T, H, D)
+    fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    fwd_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v), reps=3, rounds=3)
+    with torch.no_grad():
+        fwd_lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    dq_ms = _time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta))
+    dq_plain = _time_ms(lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta),
+                        reps=3, rounds=3)
+    dkv_ms = _time_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta))
+    dkv_plain = _time_ms(lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta),
+                         reps=3, rounds=3)
+    bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    # the library computes dq, dk and dv in one backward call
+    bwd_lib = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+    fwd_err = _rel(o, fa.flash_attention_fwd_reference(q, k, v)[0])[0]
+    lib_note = {"library_call": "scaled_dot_product_attention backward: dq, dk and dv in "
+                                "one call", "flash_attention_bwd_ms": bwd_ms}
+    recs = [
+        _record("flash_attention_fwd", "train", shape, fwd_ms, fwd_plain, fwd_lib,
+                *_fwd_work(*shape), fwd_err),
+        _record("flash_attention_dq", "train", shape, dq_ms, dq_plain, bwd_lib,
+                *_dq_work(*shape), main_err["dq"][0], max_rel_err=main_err["dq"][1],
+                **lib_note),
+        _record("flash_attention_dkv", "train", shape, dkv_ms, dkv_plain, bwd_lib,
+                *_dkv_work(*shape), max(main_err["dk"][0], main_err["dv"][0]),
+                max_rel_err=max(main_err["dk"][1], main_err["dv"][1]), **lib_note),
+    ]
+    for rec in recs:
+        _print_record("bwd kernels", rec, card)
+    print(f"[bwd kernels] backward at {shape}: Delta + dq + dkv {bwd_ms:.4f} ms, library "
+          f"backward {bwd_lib:.4f} ms — {card}", flush=True)
+    return recs
 
 
 async def _drain(req) -> list:
@@ -314,11 +462,20 @@ def phase_serve(card: str) -> dict:
     return res
 
 
+def _device_kernels(prof) -> list:
+    """The profile's device events by name, without user annotations (such
+    as the optimizer's step), whose device spans cover kernels already
+    counted."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def phase_profile(card: str) -> dict:
     """Where the serving time goes: the same mix again under
     torch.profiler (device busy share, device time by kernel), and one
     T=1024 prefill timed alone with its attention share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg, prompts, max_tokens = _serve_mix()
@@ -332,7 +489,7 @@ def phase_profile(card: str) -> dict:
         return eng, prof, wall
 
     eng, prof, wall = asyncio.run(run())
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     res = {
@@ -362,7 +519,7 @@ def phase_profile(card: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prefill()
     res["prefill_1024_ms"] = statistics.median(times)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     res["prefill_1024_device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
     res["prefill_1024_top"] = [
         {"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3}
@@ -377,15 +534,202 @@ def phase_profile(card: str) -> dict:
     return res
 
 
+def _train_batch(B: int, T: int, seed: int, device):
+    """Tokens over the tokenizer's range from a seed, and their next-token
+    targets."""
+    toks = np.random.default_rng(seed).integers(0, PROMPT_VOCAB, size=(B, T + 1))
+    toks = torch.from_numpy(toks).to(device)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def phase_train_parity(card: str) -> dict:
+    """One float32 AdamW step of GPT-2 small at full width from the same
+    weights, on the card (the three kernels) and on the CPU (their plain
+    versions): the loss, every gradient and every parameter after it."""
+    cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+    cpu = gpt2.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_model = copy.deepcopy(cpu).to("cuda")
+    lr = TRAIN_LR
+    losses, grads = {}, {}
+    for name, model in (("cuda", card_model), ("cpu", cpu)):
+        tokens, targets = _train_batch(2, 128, seed=3, device=name)
+        step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr))
+        launches = fa.flash_attention_fwd.launches
+        losses[name] = step(model, tokens, targets).item()
+        if name == "cuda" and fa.flash_attention_fwd.launches - launches != cfg.n_layer:
+            raise AssertionError("the card's parity step did not run the flash kernels")
+        grads[name] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    # f32 on both sides, sums in other orders (cuBLAS and the kernels
+    # against MKL and the plain versions), through 12 layers: the loss to
+    # 1e-4 relative, each gradient to 1e-3 of its largest entry.  After
+    # the step, AdamW's update is close to lr * g / |g|: entries whose
+    # gradient is at least 1e-2 of its tensor's largest agree to 1e-2 lr,
+    # the rest (gradients within float noise of zero) within 2 lr.
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    worst_g, worst_p, worst_p_sure = 0.0, 0.0, 0.0
+    params_cpu = dict(cpu.named_parameters())
+    for n, p in card_model.named_parameters():
+        gc, gr = grads["cuda"][n], grads["cpu"][n]
+        gmax = gr.abs().max().item()
+        worst_g = max(worst_g, (gc - gr).abs().max().item() / max(gmax, 1e-30))
+        diff = (p.detach().cpu() - params_cpu[n].detach()).abs()
+        worst_p = max(worst_p, diff.max().item())
+        sure = gr.abs() >= 1e-2 * gmax
+        if sure.any():
+            worst_p_sure = max(worst_p_sure, diff[sure].max().item())
+    ok = (loss_err <= 1e-4 and worst_g <= 1e-3 and worst_p_sure <= 1e-2 * lr
+          and worst_p <= 2 * lr and math.isfinite(losses["cuda"]))
+    res = {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"], "loss_rel_err": loss_err,
+           "grad_err_over_max": worst_g, "param_err": worst_p, "param_err_sure": worst_p_sure,
+           "lr": lr}
+    print(f"[train parity] GPT-2 small f32 B=2 T=128, one AdamW step, card vs CPU: loss "
+          f"{losses['cuda']:.6f} vs {losses['cpu']:.6f} (rel {loss_err:.2e}, tol 1e-4); "
+          f"grads max|err|/max|g| {worst_g:.2e} (tol 1e-3); params {worst_p_sure:.2e} where "
+          f"|g| >= 1e-2 max|g| (tol {1e-2 * lr:g}), {worst_p:.2e} overall (tol {2 * lr:g}) "
+          f"{'ok' if ok else 'FAIL'} — {card}", flush=True)
+    if not ok:
+        raise AssertionError(f"training parity failed: {res}")
+    return res
+
+
+def _launch_counts():
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches)
+
+
+def _reset_counts():
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_dq.launches = 0
+    fa.flash_attention_dkv.launches = 0
+
+
+def phase_train(card: str) -> dict:
+    """The training path, driven through make_train_step with the launch
+    counts set to 0 just before and read just after; then one remat step,
+    and a profiled window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+    model = gpt2.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr=TRAIN_LR))
+    tokens, targets = _train_batch(TRAIN_B, TRAIN_T, seed=4, device="cuda")
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_counts()
+    losses = [step(model, tokens, targets) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(model, tokens, targets) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+
+    losses = [x.item() for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and falling: {losses}")
+    want = (cfg.n_layer * n_steps,) * 3
+    if launches != want:
+        raise AssertionError(f"launches (B1, B2, B3) {launches} over {n_steps} steps, "
+                             f"expected {want}: n_layer each a step")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = TRAIN_B * TRAIN_T * TRAIN_STEPS / wall
+    flops_tok = gpt2.flops_per_token(cfg, TRAIN_T)
+    mfu = tok_s * flops_tok / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # remat: the same weights in a remat model; its step recomputes each
+    # block's forward in the backward, so B1 launches twice a layer; the
+    # loss is the forward's, and equals the plain model's at those weights
+    rcfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=True)
+    rmodel = gpt2.GPT2(rcfg).to("cuda")
+    rmodel.load_state_dict(model.state_dict())
+    rstep = gpt2.make_train_step(rcfg, gpt2.make_adamw(rmodel.parameters(), lr=TRAIN_LR))
+    _reset_counts()
+    loss_remat = rstep(rmodel, tokens, targets).item()
+    remat_launches = _launch_counts()
+    _reset_counts()
+    loss_plain = step(model, tokens, targets).item()
+    plain_launches = _launch_counts()
+    del rmodel, rstep
+    if remat_launches != (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer):
+        raise AssertionError(f"remat step launched (B1, B2, B3) {remat_launches}, expected "
+                             f"({2 * cfg.n_layer}, {cfg.n_layer}, {cfg.n_layer})")
+    if plain_launches != (cfg.n_layer,) * 3:
+        raise AssertionError(f"plain step launched {plain_launches}")
+    # the forward runs the same operations on the same inputs in both
+    if abs(loss_remat - loss_plain) > 1e-5 * abs(loss_plain):
+        raise AssertionError(f"remat loss {loss_remat} != plain loss {loss_plain}")
+
+    # where the time goes: two steps under torch.profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(2):
+            step(model, tokens, targets)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    kernels = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    flash = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / 2
+             for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+                          "flash_dkv_bf16_kernel")}
+    res = {
+        "config": "GPT-2 small, float32 params, bfloat16 compute, remat=False, "
+                  f"B={TRAIN_B}, T={TRAIN_T}, AdamW lr {TRAIN_LR}",
+        "losses": losses,
+        "step_ms": step_ms,
+        "tokens_per_s": tok_s,
+        "flops_per_token": flops_tok,
+        "mfu": mfu,
+        "peak_memory_gb": peak_gb,
+        "launches": {"flash_attention_fwd": launches[0], "flash_attention_dq": launches[1],
+                     "flash_attention_dkv": launches[2], "steps": n_steps},
+        "remat_launches": list(remat_launches),
+        "loss_remat": loss_remat,
+        "loss_plain": loss_plain,
+        "profiled_step_ms": prof_wall / 2 * 1e3,
+        "device_busy_ms_per_step": busy_ms / 2,
+        "device_idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
+        "flash_ms_per_step": flash,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "ms_per_step": e.self_device_time_total / 1e3 / 2} for e in top[:12]],
+        "card": card,
+    }
+    print(f"[train] GPT-2 small bf16 compute / f32 params, B={TRAIN_B} T={TRAIN_T}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {n_steps} steps; step {step_ms:.2f} ms "
+          f"(mean of {TRAIN_STEPS} timed steps), {tok_s:.0f} tok/s, MFU {mfu:.4f} at "
+          f"{flops_tok / 1e9:.4f} GFLOP/token; peak memory {peak_gb:.2f} GB; launches "
+          f"B1/B2/B3 {launches} = {cfg.n_layer} x {n_steps} — {card}", flush=True)
+    print(f"[train] remat step: launches B1/B2/B3 {remat_launches}, loss {loss_remat:.6f} = "
+          f"plain {loss_plain:.6f} — {card}", flush=True)
+    print(f"[train] profiled: {res['profiled_step_ms']:.2f} ms a step, device busy "
+          f"{res['device_busy_ms_per_step']:.2f} ms, idle share {res['device_idle_share']:.4f}; "
+          f"flash per step: fwd {flash['flash_fwd_bf16_kernel']:.3f} ms, dq "
+          f"{flash['flash_dq_bf16_kernel']:.3f} ms, dkv {flash['flash_dkv_bf16_kernel']:.3f} ms "
+          f"— {card}", flush=True)
+    for k in res["top_kernels"]:
+        print(f"[train]   {k['ms_per_step']:9.3f} ms/step  x{k['count']:5d}  {k['name']}",
+              flush=True)
+    print("[train] " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
-    rec = phase_kernels(card)
+    fwd_rec = phase_kernels(card)
+    train_recs = phase_bwd_kernels(card)
     phase_parity(card)
     serve = phase_serve(card)
-    rec["launches"] = serve["flash_launches"]
+    fwd_rec["launches"] = serve["flash_launches"]
     phase_profile(card)
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    phase_train_parity(card)
+    train = phase_train(card)
+    for rec in train_recs:
+        rec["launches"] = train["launches"][rec["name"]]
+    print(json.dumps({"kernels": [fwd_rec, *train_recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,13 @@ Paths mirror ``ray_tpu/`` (``ray_tpu/models/gpt2.py`` is ported at
 on a ported path becomes a hand-written Hopper kernel under
 ``ops/csrc/``, built with nvcc at first use.
 
-Ported so far: the serving main path — ``serve.llm.LLMEngine`` over GPT-2
+Ported so far: the serving path — ``serve.llm.LLMEngine`` over GPT-2
 (``models/gpt2.py``) with a paged KV cache, its prefill attention on the
-flash-attention forward kernel (``ops/flash_attention.py``).  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+flash-attention forward kernel — and the training path — GPT-2's
+``make_train_step`` with AdamW (``models/common.py``), differentiable
+through the flash-attention forward and backward kernels
+(``ops/flash_attention.py``).  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 __all__ = ["ops", "models", "serve"]

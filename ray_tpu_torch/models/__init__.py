@@ -1,9 +1,10 @@
 """ray_tpu_torch.models — PyTorch ports of the reference's model families.
 
-Ported so far: GPT-2 (``gpt2``, forward and the inference plane) and the
+Ported so far: GPT-2 (``gpt2``: the model, its training step and the
+inference plane), the shared training scaffolding (``common``) and the
 weight converter from the reference's parameter tree (``convert``)."""
 
-__all__ = ["gpt2", "convert"]
+__all__ = ["gpt2", "common", "convert"]
 
 
 def __getattr__(name):

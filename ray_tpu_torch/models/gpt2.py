@@ -1,13 +1,16 @@
-"""GPT-2 in PyTorch, forward only (port of ``ray_tpu/models/gpt2.py``).
+"""GPT-2 in PyTorch (port of ``ray_tpu/models/gpt2.py``): the model, its
+training step and its inference plane.
 
 The module tree mirrors the flax parameter tree name for name (``wte``,
 ``wpe``, ``h_{i}.{ln_1, attn.{qkv, attn_out}, ln_2, mlp.{mlp_up,
 mlp_down}}``, ``ln_f``, ``lm_head``), so ``models/convert.py`` carries the
 reference's weights across key by key.  Linear and embedding weights are
-stored in the serving dtype, cast once when they are loaded (the reference
-keeps float32 params and casts them on every call: the values are the
-same); the LayerNorm scale and bias stay float32, because the reference
-normalises in float32.
+stored in ``param_dtype`` and cast to the compute ``dtype`` on every call,
+as flax's ``Dense(dtype, param_dtype)`` does: training keeps float32
+params with bfloat16 compute, as the reference does.  Left unset,
+``param_dtype`` follows ``dtype``, so serving casts its weights once when
+they are loaded (the values are the same).  The LayerNorm scale and bias
+stay float32, because the reference normalises in float32.
 
 Parity with the reference, each visible below: flax ``nn.gelu`` is the
 tanh approximation; the LayerNorm eps is 1e-6; flax ``Dense.kernel`` is
@@ -16,10 +19,14 @@ transposes); the fused qkv projection splits into q|k|v column blocks and
 each into contiguous heads; ``lm_head`` has no bias and is not tied to
 ``wte``.
 
+Training: ``loss_fn``, ``make_train_step`` (over ``models/common.py``),
+``make_adamw`` and ``flops_per_token``; ``remat`` recomputes each block's
+forward in the backward (``torch.utils.checkpoint``), as the reference's
+``nn.remat``.  Attention's backward runs the flash dq and dkv kernels.
+
 The inference plane (``prefill_forward``, ``decode_forward``,
 ``sample_logits``) takes the module itself; the serving engine owns the
-paged KV cache.  Training (loss, AdamW, the backward attention kernels)
-is a later slice.
+paged KV cache.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from typing import List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.models import common
 from ray_tpu_torch.ops.attention import causal_attention
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm default
@@ -46,12 +55,19 @@ class GPT2Config:
     n_head: int = 12
     d_model: int = 768
     max_seq_len: int = 1024
-    dtype: torch.dtype = torch.bfloat16  # serving dtype of linear/embedding weights
+    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    # storage dtype of linear/embedding weights; None follows dtype
+    param_dtype: Optional[torch.dtype] = None
+    remat: bool = True  # recompute each block's forward in the backward
     use_bias: bool = True
 
     @property
     def d_head(self) -> int:
         return self.d_model // self.n_head
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.dtype if self.param_dtype is None else self.param_dtype
 
     @staticmethod
     def tiny(**kw) -> "GPT2Config":
@@ -70,18 +86,43 @@ class GPT2Config:
         return GPT2Config(n_layer=36, n_head=20, d_model=1280, **kw)  # 774M
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` stored in ``cfg.weight_dtype``, computing in
+    ``cfg.dtype`` (the cast is a no-op when the two agree)."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, cfg: GPT2Config):
+        super().__init__(d_in, d_out, bias=bias, dtype=cfg.weight_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        return F.linear(x, self.weight.to(self.compute_dtype), bias)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` stored in ``cfg.weight_dtype``; the gathered rows
+    are cast to ``cfg.dtype`` (the same values as casting the table)."""
+
+    def __init__(self, n: int, d: int, cfg: GPT2Config):
+        super().__init__(n, d, dtype=cfg.weight_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight).to(self.compute_dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        self.qkv = nn.Linear(cfg.d_model, 3 * cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
-        self.attn_out = nn.Linear(cfg.d_model, cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
+        self.qkv = Linear(cfg.d_model, 3 * cfg.d_model, cfg.use_bias, cfg)
+        self.attn_out = Linear(cfg.d_model, cfg.d_model, cfg.use_bias, cfg)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        self.mlp_up = nn.Linear(cfg.d_model, 4 * cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
-        self.mlp_down = nn.Linear(4 * cfg.d_model, cfg.d_model, bias=cfg.use_bias, dtype=cfg.dtype)
+        self.mlp_up = Linear(cfg.d_model, 4 * cfg.d_model, cfg.use_bias, cfg)
+        self.mlp_down = Linear(4 * cfg.d_model, cfg.d_model, cfg.use_bias, cfg)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.mlp_down(F.gelu(self.mlp_up(h), approximate="tanh"))
@@ -90,22 +131,34 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
+        self.cfg = cfg
         self.ln_1 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
         self.attn = Attention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
         self.mlp = MLP(cfg)
+
+    def forward(self, x: torch.Tensor):
+        """Causal block over whole prompts from position 0: x [B, T, d] ->
+        (x', k, v), k and v [B, T, H, Dh] for the serving engine's cache."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        q, k, v = _qkv(self, x, cfg)
+        att = causal_attention(q, k, v).reshape(B, T, cfg.d_model)
+        x = x + self.attn.attn_out(att)
+        x = x + self.mlp(_ln(x, self.ln_2, cfg.dtype))
+        return x, k, v
 
 
 class GPT2(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype)
-        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, dtype=cfg.dtype)
+        self.wte = Embedding(cfg.vocab_size, cfg.d_model, cfg)
+        self.wpe = Embedding(cfg.max_seq_len, cfg.d_model, cfg)
         for i in range(cfg.n_layer):
             self.add_module(f"h_{i}", Block(cfg))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
-        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False, dtype=cfg.dtype)
+        self.lm_head = Linear(cfg.d_model, cfg.vocab_size, False, cfg)
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
@@ -121,9 +174,10 @@ def init_model(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
     """Synthetic weights from ``generator`` at the scales of flax's default
     initialisers: normal draws with std 1/sqrt(fan_in) for Dense kernels
     and 1/sqrt(d_model) for embeddings, zero biases, unit LayerNorm scale.
-    Drawn in float32 and cast once to the serving dtype; returns the model
-    in eval mode.  The draws are not the reference's (different RNGs):
-    carry its weights across with ``models/convert.py`` for parity."""
+    Drawn in float32 and cast once to ``cfg.weight_dtype``; returns the
+    model in eval mode (GPT-2 has no dropout: the mode changes nothing).
+    The draws are not the reference's (different RNGs): carry its weights
+    across with ``models/convert.py`` for parity."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = GPT2(cfg)
@@ -150,7 +204,44 @@ def init_model(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
 
 
 def num_params(model: nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
+    return common.num_params(model)
+
+
+# ----------------------------------------------------------------------
+# Training plane.
+# ----------------------------------------------------------------------
+def loss_fn(model: GPT2, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: Optional[GPT2Config] = None) -> torch.Tensor:
+    """Next-token cross entropy; targets = tokens shifted by the caller
+    (logsumexp form, ``models/common.py`` ``next_token_loss``).  ``cfg``
+    is the model's own; it is taken for the reference's signature."""
+    return common.next_token_loss(model(tokens), targets)
+
+
+def make_train_step(cfg: GPT2Config, optimizer: torch.optim.Optimizer):
+    """train_step(model, tokens, targets) -> loss: one AdamW step of
+    ``model`` in place (see ``models/common.py``)."""
+    return common.make_train_step(loss_fn, cfg, optimizer)
+
+
+def make_adamw(params, lr: float = 3e-4, weight_decay: float = 0.1) -> torch.optim.AdamW:
+    """The reference's ``optax.adamw(lr, b1=0.9, b2=0.95,
+    weight_decay=0.1)``: one parameter group, so every parameter is
+    decayed as optax decays it; optax's update -lr * (adam + wd * p) is
+    torch's decoupled p * (1 - lr * wd) - lr * adam."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.95), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def flops_per_token(cfg: GPT2Config, seq_len: int) -> float:
+    """Approximate training FLOPs/token: 6*N + attention term."""
+    n = (
+        cfg.n_layer * (12 * cfg.d_model**2)
+        + cfg.vocab_size * cfg.d_model * 2
+        + cfg.max_seq_len * cfg.d_model
+    )
+    attn = cfg.n_layer * 12 * seq_len * cfg.d_model  # fwd+bwd attention matmuls
+    return 6.0 * n + attn
 
 
 # ----------------------------------------------------------------------
@@ -171,17 +262,17 @@ def _qkv(blk: Block, x: torch.Tensor, cfg: GPT2Config):
 
 def _forward_prompt(model: GPT2, tokens: torch.Tensor):
     """Causal forward over whole prompts from position 0: the final
-    hidden states after ln_f, and each layer's K and V [B, T, H, Dh]."""
+    hidden states after ln_f, and each layer's K and V [B, T, H, Dh].
+    With ``remat``, each block's forward is checkpointed when autograd is
+    recording (its recompute launches the attention forward again)."""
     cfg = model.cfg
-    B, T = tokens.shape
+    T = tokens.shape[1]
     pos = torch.arange(T, device=tokens.device)
     x = model.wte(tokens) + model.wpe(pos)[None]
+    remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
     for blk in model.blocks():
-        q, k, v = _qkv(blk, x, cfg)
-        att = causal_attention(q, k, v).reshape(B, T, cfg.d_model)
-        x = x + blk.attn.attn_out(att)
-        x = x + blk.mlp(_ln(x, blk.ln_2, cfg.dtype))
+        x, k, v = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         ks.append(k)
         vs.append(v)
     return _ln(x, model.ln_f, cfg.dtype), ks, vs

@@ -1,6 +1,7 @@
 """ray_tpu_torch.ops — attention and the port's hand-written CUDA kernels
 (sources in ``csrc/``, built by ``_build.py``): the flash-attention
-forward (``flash_attention``) behind the ``attention`` dispatch."""
+forward and backward kernels (``flash_attention``) behind the
+``attention`` dispatch."""
 
 __all__ = ["attention", "flash_attention"]
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
 plain C interface, under ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``).  The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.  Nothing here runs at import: the CPU-only test machine
-imports this module and has no nvcc.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Nothing
+here runs at import: the CPU-only test machine imports this module and has
+no nvcc.
 """
 
 from __future__ import annotations
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the source, the shared headers it may include, and the flags
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,11 +1,12 @@
 """Causal attention dispatch (port of ``ray_tpu/ops/attention.py``).
 
 One entry point for the models: ``causal_attention`` takes ``[B, T, H, D]``
-q, k, v.  On the card it launches the hand-written flash kernel
-(``ops/flash_attention.py``) for every shape; on the CPU it runs that
-kernel's plain version.  There is no shape gate and no fallback between
-the two.  Sequence-parallel ring attention (``mesh``/``sp_axis``) is not
-ported yet.
+q, k, v and is differentiable.  On the card it launches the hand-written
+flash kernels (``ops/flash_attention.py``: the forward, and the dq and dkv
+kernels in the backward) for every shape; on the CPU it runs their plain
+versions.  There is no shape gate and no fallback between the two.
+Sequence-parallel ring attention (``mesh``/``sp_axis``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, Optional
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+from ray_tpu_torch.ops.flash_attention import flash_attention
 
 
 def reference_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -36,4 +37,4 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "sequence-parallel ring attention is not ported to ray_tpu_torch yet"
         )
-    return flash_attention_fwd(q, k, v, causal=True)[0]
+    return flash_attention(q, k, v, causal=True)

@@ -41,11 +41,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;        // query rows per block
-constexpr int kBlockN = 64;        // keys per K/V tile
-constexpr float kNegInf = -1e30f;  // the reference's mask value
+using namespace flash;
+
+constexpr int kBlockM = 64;  // query rows per block
+constexpr int kBlockN = 64;  // keys per K/V tile
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -58,31 +61,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  4 warps, each owning 16 query rows of the tile.  In
-// the m16n8k16 fragments, lane (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8 and columns 2t, 2t + 1 (+ 8) of each 16 x 8 tile.
+// bf16: tensor cores.  4 warps, each owning 16 query rows of the tile, with
+// the m16n8k16 fragments of mma_bf16.cuh.
 // ---------------------------------------------------------------------------
 constexpr int kMmaWarps = kBlockM / 16;
 constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kPad = 8;  // bf16 of row padding: fragment loads hit 32 banks
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)

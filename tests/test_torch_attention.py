@@ -1,10 +1,13 @@
-"""The port's flash-attention forward (ray_tpu_torch/ops) held to the JAX
-package: its plain version against the Pallas kernel run in interpret
-mode (O and LSE), and the attention dispatch against the reference
-einsum attention.  Inputs are numpy arrays from a seed, handed to both
-frameworks; everything is float32 on the CPU, at the 2e-4 tolerance of
-tests/test_ops.py (both sides compute in float32 and differ only in the
-order of their sums)."""
+"""The port's flash attention (ray_tpu_torch/ops) held to the JAX package:
+the plain forward against the Pallas kernel run in interpret mode (O and
+LSE), the plain backward against the Pallas backward kernels in interpret
+mode (dQ, dK, dV), gradients through the port's autograd Function against
+jax.grad of the reference's custom_vjp, and the attention dispatch against
+the reference einsum attention.  Inputs are numpy arrays from a seed,
+handed to both frameworks; everything is float32 on the CPU, at the 2e-4
+tolerance of tests/test_ops.py for values computed directly (both sides
+compute in float32 and differ only in the order of their sums) and its
+5e-3 for gradients taken through autograd."""
 
 import numpy as np
 import pytest
@@ -14,13 +17,15 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from ray_tpu.ops.attention import reference_causal_attention as jax_reference  # noqa: E402
-from ray_tpu.ops.pallas_attention import _flash_fwd_impl  # noqa: E402
+from ray_tpu.ops.pallas_attention import _flash_bwd_impl, _flash_fwd_impl  # noqa: E402
+from ray_tpu.ops.pallas_attention import flash_attention as jax_flash_attention  # noqa: E402
 from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_tpu_torch.ops.attention import causal_attention, reference_causal_attention  # noqa: E402
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+GRAD_TOL = dict(rtol=5e-3, atol=5e-3)
 
 
 def _qkv(B, T, H, D, seed=0):
@@ -121,3 +126,103 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
         init_model(GPT2Config.tiny(dtype=torch.float32), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         LLMEngine(LLMConfig(model="tiny"))  # the engine's default device is cuda
+
+
+def _from_bh(a, B, H):
+    BH, T, D = a.shape
+    return np.asarray(a).reshape(B, H, T, D).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_bwd_matches_pallas_interpret(causal):
+    """The plain backward (B2 and B3's plain versions) against the Pallas
+    dq and dkv kernels, from the same O, LSE and dO."""
+    B, T, H, D = 1, 128, 2, 64
+    q, k, v, do = _qkv(B, T, H, D, seed=6) + _qkv(B, T, H, D, seed=7)[:1]
+    scale = 1.0 / np.sqrt(D)
+    kw = dict(block_q=64, block_k=64, scale=scale, causal=causal, interpret=True)
+    out, lse = _flash_fwd_impl(_to_bh(q), _to_bh(k), _to_bh(v), **kw)
+    ref = _flash_bwd_impl(_to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do), out, lse, **kw)
+    got = fa.flash_attention_bwd_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(_from_bh(out, B, H).copy()),
+        torch.from_numpy(np.asarray(lse).reshape(B, H, T).copy()),
+        torch.from_numpy(do), causal=causal,
+    )
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == (B, T, H, D), name
+        np.testing.assert_allclose(a.numpy(), _from_bh(b, B, H), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_grads_match_jax_grad(causal):
+    """torch.autograd through the port's flash_attention (Function over the
+    plain forward and backward on the CPU) against jax.grad of the
+    reference's flash_attention (custom_vjp over the Pallas kernels in
+    interpret mode)."""
+    B, T, H, D = 1, 128, 2, 64
+    q, k, v, w = _qkv(B, T, H, D, seed=8) + _qkv(B, T, H, D, seed=9)[:1]
+
+    def f(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal, block_q=64, block_k=64,
+                                  interpret=True)
+        return (out * jnp.asarray(w)).sum()
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = fa.flash_attention(qt, kt, vt, causal=causal)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(w))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 8, 100])
+def test_plain_flash_bwd_at_ragged_lengths_matches_autograd(T):
+    """Any T works, as in the kernels: the port's gradients at lengths that
+    fill no 64-row tile against autograd through the einsum reference."""
+    q, k, v, w = _qkv(2, T, 3, 64, seed=10 + T) + _qkv(2, T, 3, 64, seed=20 + T)[:1]
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    gt = torch.from_numpy(w)
+    got = torch.autograd.grad(causal_attention(qt, kt, vt), (qt, kt, vt), gt)
+    ref = torch.autograd.grad(reference_causal_attention(qt, kt, vt), (qt, kt, vt), gt)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **TOL)
+
+
+def test_backward_on_cpu_takes_the_plain_versions():
+    """On CPU tensors the backward wrappers run their plain versions and
+    launch nothing; the serving path's inference_mode forward still works
+    through the Function."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 24, 2, 64, seed=11))
+    do = torch.from_numpy(_qkv(1, 24, 2, 64, seed=12)[0])
+    o, lse = fa.flash_attention_fwd_reference(q, k, v)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == before
+    with torch.inference_mode():
+        assert torch.equal(causal_attention(q, k, v), o)
+
+
+@pytest.mark.parametrize("case", ["do_shape", "do_dtype", "do_last_stride", "lse_shape",
+                                  "lse_dtype", "delta_layout"])
+def test_flash_bwd_wrapper_rejects_what_the_kernels_do_not_take(case):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 64, seed=13))
+    do = torch.from_numpy(_qkv(1, 8, 2, 64, seed=14)[0])
+    lse = torch.zeros(1, 2, 8)
+    delta = torch.zeros(1, 2, 8)
+    if case == "do_shape":
+        do = do[:, :4]
+    elif case == "do_dtype":
+        do = do.double()
+    elif case == "do_last_stride":
+        do = do.transpose(1, 3).contiguous().transpose(1, 3)
+    elif case == "lse_shape":
+        lse = lse[..., :4]
+    elif case == "lse_dtype":
+        lse = lse.double()
+    else:
+        delta = torch.zeros(1, 8, 2).transpose(1, 2)  # [B, H, T] but not contiguous
+    with pytest.raises(ValueError):
+        fa._check_bwd(q, k, v, do, lse, delta)

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == [], out["bad"]
     for mod in ("ray_tpu_torch.ops.flash_attention", "ray_tpu_torch.models.convert",
-                "ray_tpu_torch.serve.llm.engine", "ray_tpu_torch.ops._build"):
+                "ray_tpu_torch.models.common", "ray_tpu_torch.serve.llm.engine",
+                "ray_tpu_torch.ops._build"):
         assert mod in out["imported"]
 
 

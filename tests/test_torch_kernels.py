@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card.  CUDA kernels have no CPU mode, so every test here
-skips without an NVIDIA card; on the card run
+versions, on the card: the flash-attention forward (B1) and the dq and
+dkv backward kernels (B2, B3), alone and through the autograd Function.
+CUDA kernels have no CPU mode, so every test here skips without an
+NVIDIA card; on the card run
 ``pytest -m cuda tests/test_torch_kernels.py`` (no JAX needed)."""
 
 import pytest
@@ -30,3 +32,70 @@ def test_flash_kernel_matches_plain_on_card(T, dtype):
     o_tol, l_tol = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 1e-3)
     assert (out.float() - ref_out.float()).abs().max().item() <= o_tol
     assert (lse - ref_lse).abs().max().item() <= l_tol
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|: gradients' scale varies with T and the
+    inputs, so backward tolerances are relative to the largest entry."""
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+# f32: both sides compute in f32, in another summation order.  bf16: the
+# kernels round P and dS to bf16 before their products (2^-9 relative per
+# entry) where the plain version keeps f32, and both round each output once
+# to bf16 (2^-8 relative at most): 1e-2 of the largest entry covers both.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [8, 100, 256])
+def test_flash_bwd_kernels_match_plain_on_card(T, dtype):
+    """dq (B2) and dkv (B3) against their plain versions from the same O,
+    LSE and dO, each launched once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(100 + T)
+    q, k, v, do = (torch.randn(2, T, 12, 64, generator=g, device="cuda").to(dt) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_reference(q, k, v)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dt and a.shape == q.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_function_on_card(dtype):
+    """The autograd Function on the card: one launch of each kernel per
+    forward and backward, strided q/k/v views of one fused projection,
+    gradients against autograd through the plain versions on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn(2, 130, 3 * 12 * 64, generator=g, device="cuda").to(dt)
+    w = torch.randn(2, 130, 12, 64, generator=g, device="cuda").to(dt)
+
+    def grads(x):
+        x = x.detach().requires_grad_(True)
+        q, k, v = (t.unflatten(-1, (12, 64)) for t in x.split(12 * 64, dim=-1))
+        out = fa.flash_attention(q, k, v)
+        (gx,) = torch.autograd.grad(out, x, w.to(x.device))
+        return out, gx
+
+    counts = lambda: (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,  # noqa: E731
+                      fa.flash_attention_dkv.launches)
+    before = counts()
+    out, gx = grads(qkv)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    ref_out, ref_gx = grads(qkv.cpu())
+    assert _rel_err(out.cpu(), ref_out) <= (1e-4 if dt == torch.float32 else 2e-2)
+    assert _rel_err(gx.cpu(), ref_gx) <= BWD_TOL[dtype]
