@@ -11,7 +11,7 @@ for the port's sharded planes.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 from torch import nn
@@ -25,9 +25,11 @@ def next_token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     return (lse - tgt.float()).mean()
 
 
-def make_train_step(loss_fn: Callable, cfg: Any, optimizer: torch.optim.Optimizer):
+def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer):
     """train_step(model, tokens, targets) -> loss for a
-    loss_fn(model, tokens, targets, cfg).
+    loss_fn(model, tokens, targets).  The reference's step also takes the
+    model's config for its loss_fn to build the model from; a module
+    carries its own.
 
     Each call computes the loss and its gradients and takes one optimizer
     step, updating ``model``'s parameters and ``optimizer``'s state in
@@ -36,7 +38,7 @@ def make_train_step(loss_fn: Callable, cfg: Any, optimizer: torch.optim.Optimize
 
     def train_step(model: nn.Module, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, targets, cfg)
+        loss = loss_fn(model, tokens, targets)
         loss.backward()
         optimizer.step()
         return loss.detach()

@@ -203,25 +203,30 @@ def init_model(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
     return model.eval()
 
 
-def num_params(model: nn.Module) -> int:
-    return common.num_params(model)
+num_params = common.num_params
 
 
 # ----------------------------------------------------------------------
 # Training plane.
 # ----------------------------------------------------------------------
-def loss_fn(model: GPT2, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: Optional[GPT2Config] = None) -> torch.Tensor:
+def loss_fn(model: GPT2, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy; targets = tokens shifted by the caller
-    (logsumexp form, ``models/common.py`` ``next_token_loss``).  ``cfg``
-    is the model's own; it is taken for the reference's signature."""
+    (logsumexp form, ``models/common.py`` ``next_token_loss``)."""
     return common.next_token_loss(model(tokens), targets)
 
 
 def make_train_step(cfg: GPT2Config, optimizer: torch.optim.Optimizer):
     """train_step(model, tokens, targets) -> loss: one AdamW step of
-    ``model`` in place (see ``models/common.py``)."""
-    return common.make_train_step(loss_fn, cfg, optimizer)
+    ``model`` in place (see ``models/common.py``).  ``model`` must be
+    built from ``cfg``, the config the reference's step applies."""
+    step = common.make_train_step(loss_fn, optimizer)
+
+    def train_step(model: GPT2, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        if model.cfg != cfg:
+            raise ValueError(f"model built from {model.cfg}, step made for {cfg}")
+        return step(model, tokens, targets)
+
+    return train_step
 
 
 def make_adamw(params, lr: float = 3e-4, weight_decay: float = 0.1) -> torch.optim.AdamW:

@@ -206,3 +206,18 @@ def test_float32_params_with_bfloat16_compute(tree):
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     jloss = jgpt2.loss_fn(params, jnp.asarray(tok), jnp.asarray(tgt), jcfg)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-2)
+
+
+def test_train_step_refuses_a_model_of_another_config(tree):
+    """The step is made for one config, as the reference's is; a model
+    built from another is refused before any update."""
+    cfg, model = _port(tree, remat=False)
+    other = tgpt2.GPT2Config.tiny(dtype=torch.float32, remat=True)
+    step = tgpt2.make_train_step(other, tgpt2.make_adamw(model.parameters(), LR))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    tok, tgt = (torch.from_numpy(a).long() for a in _batch(7))
+    with pytest.raises(ValueError, match="step made for"):
+        step(model, tok, tgt)
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    assert torch.isfinite(tgpt2.make_train_step(cfg, tgpt2.make_adamw(
+        model.parameters(), LR))(model, tok, tgt))
