@@ -77,11 +77,15 @@ TRAIN_B, TRAIN_T, TRAIN_LR = 16, 1024, 3e-4
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # kernel-vs-plain cases, (T, dtype, causal, D, fused q/k/v): the prefill
 # buckets' range with ragged 100, both dtypes, one non-causal case and
-# D=128 per dtype
+# D=128 per dtype; then bf16 on both sides of the TMA tile edges (B1's
+# 128-key and 64-key tiles, B3's 64-key and 64- or 32-query tiles)
 _DTYPES = (torch.bfloat16, torch.float32)
+EDGE_TS = (1, 63, 65, 127, 129, 1000)
 KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]
                 + [(100, dt, False, 64, False) for dt in _DTYPES]
-                + [(256, dt, True, 128, False) for dt in _DTYPES])
+                + [(256, dt, True, 128, False) for dt in _DTYPES]
+                + [(T, torch.bfloat16, True, 64, True) for T in EDGE_TS]
+                + [(T, torch.bfloat16, False, 128, True) for T in EDGE_TS])
 
 
 def _card() -> str:
@@ -113,7 +117,7 @@ def phase_build() -> None:
         secs, log = _build.build_info[name]
         print(f"[build] {name}: nvcc {secs:.2f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                 print(f"[build]   {line.strip()}", flush=True)
 
 
@@ -269,7 +273,9 @@ def phase_bwd_kernels(card: str) -> list:
     # the inputs).  f32: both sides compute in f32 in another summation
     # order.  bf16: the kernels round P and dS to bf16 before their products
     # (2^-9 relative per entry) where the plain version keeps f32, and both
-    # round each output once to bf16 (2^-8 relative at most): 1e-2.
+    # round each output once to bf16 (2^-8 relative at most): 1e-2.  At T=1
+    # the softmax over one key is constant, so dQ and dK are zero but for
+    # rounding: there they are measured against the largest dV entry.
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     for i, (T, dt, causal, D, fused) in enumerate(KERNEL_CASES):
         q, k, v = _qkv(T, 12, D, dt, fused, seed=100 + i)
@@ -278,7 +284,11 @@ def phase_bwd_kernels(card: str) -> list:
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
         ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
-        errs = [_rel(a, b) for a, b in zip(got, ref)]
+        errs = []
+        for j, (a, b) in enumerate(zip(got, ref)):
+            err = (a.float() - b.float()).abs().max().item()
+            norm = ref[2] if T == 1 and j < 2 else b
+            errs.append((err, err / norm.float().abs().max().item()))
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
         ok = finite and all(rel <= tol[dt] for _, rel in errs)
         print(f"[bwd kernels] T={T:5d} {str(dt)[6:]:8s} causal={int(causal)} D={D:3d} "

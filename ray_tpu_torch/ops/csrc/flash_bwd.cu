@@ -8,7 +8,8 @@
 // forward's row log-sum-exp (masked entries 0), dS = P * (dO V^T - Delta) *
 // scale, and Delta = rowsum(dO * O) computed by the wrapper in torch, as the
 // reference computes it in XLA outside its kernels.  Two kernels, not one
-// with atomics, so that dQ is summed in a fixed order and is deterministic.
+// with atomics, so that dQ is summed in a fixed order and every gradient is
+// deterministic.
 //
 // What bounds it on an H100.  At GPT-2 small's training shape (B=16, T=1024,
 // H=12, D=64, bf16, causal) B2 does three products over the 524,800 causal
@@ -17,42 +18,52 @@
 // core time at 989 TFLOP/s and 38 us of memory time at 3.35 TB/s.  B3 does
 // four products (S^T and dP^T are recomputed, then dV and dK), 51.6 GFLOP
 // against 153 MB: 52 us against 46 us.  So the operations set both bounds.
-// What the design does about them: in bf16 every product runs on the tensor
-// cores (mma.sync m16n8k16, f32 accumulation, the fragment code of the
-// forward kernel); P and dS never leave the SM; each block streams the other
-// side's tiles through shared memory once and skips the tiles that the
-// causal mask empties.  It does not reach the bound: the tiles are loaded
-// synchronously, with no copy in flight under the products, and the operand
-// that a product reads transposed (K in dQ += dS K; dO and Q in dV and dK) is
-// gathered from shared memory two bf16 at a time.  TMA-fed wgmma with the
-// next tile's load in flight is later work.  In f32 the kernels do their
-// arithmetic on the CUDA cores (67 TFLOP/s), the simple version kept for f32
-// parity with the reference.
+//
+// B3 (bf16), designed for Hopper.  One warpgroup per block owns 64 keys, the
+// wgmma M; its K and V tiles arrive once by TMA, and the Q and dO of each
+// query tile through a two-stage ring of 128-byte-swizzled shared tiles
+// behind mbarriers, issued by one thread, so tile i+1 is in flight while
+// tile i is in the products.  The tile's LSE and Delta ride the same
+// barrier by 4-byte cp.async, one float a thread: a head's rows start at
+// (b*H + h) * T floats, which TMA cannot read from when T % 4 != 0.  S^T = K Q^T and dP^T = V dO^T
+// are wgmma with both operands in shared memory, K-major as they land; their
+// accumulators, turned into P^T and dS^T (rounded to bf16), are the register
+// A operands of dV += P^T dO and dK += dS^T Q, whose B operands dO and Q
+// are read MN-major through the descriptor's transpose bit: nothing is
+// gathered or transposed by a thread.  The grid launches the first key
+// tiles, which see the most queries, first.  What still keeps it from the
+// bound: within a block the two product pairs and the elementwise step run
+// in series, and each query tile is loaded by every key block that needs
+// it (64 keys a block).
+//
+// B2 (bf16) is PR 2's simple version: mma.sync m16n8k16 fragments from
+// padded shared tiles loaded synchronously, K gathered two bf16 at a time
+// for dQ += dS K.  In f32 both kernels do their arithmetic on the CUDA cores
+// (67 TFLOP/s), the simple version kept for f32 parity with the reference.
 //
 // Layout.  q, k, v and dO are [B, T, H, D], read through the strides the
 // wrapper passes (last dimension contiguous; in bf16 16-byte-aligned
-// pointers and strides in multiples of 8 elements, as the wrapper checks),
-// so the q/k/v views of GPT-2's fused qkv projection need no copy.  LSE and
-// Delta are contiguous [B, H, T] f32.  dQ, dK, dV are written contiguous
-// [B, T, H, D] in the input type, each rounded once from its f32 sum.
+// pointers and strides in multiples of 8 elements, as the wrapper checks and
+// TMA needs), so the q/k/v views of GPT-2's fused qkv projection need no
+// copy.  LSE and Delta are contiguous [B, H, T] f32.  dQ, dK, dV are written
+// contiguous [B, T, H, D] in the input type, each rounded once from its f32
+// sum.
 //
 // Work split, in place of the TPU's sequential grid axis:
 //   dq:  one block per (b*h, 64-row query tile); a loop walks the 64-key K/V
 //        tiles up to the diagonal.
 //   dkv: one block per (b*h, 64-key tile); a loop walks the query tiles from
-//        the diagonal on.  Transposed products S^T = K Q^T and dP^T = V dO^T
-//        put P^T and dS^T in the accumulator layout, which is the A fragment
-//        of dV += P^T dO and dK += dS^T Q.  Query tiles are 64 rows at D=64
-//        and 32 at D=128, where the two 16 x 128 f32 accumulators of a warp
-//        already take 128 registers a thread.
-// Any T >= 1 works: rows at or past T are loaded as zeros, masked, and not
-// written.
+//        the diagonal on: 64 rows at D=64, 32 at D=128, where the dK and dV
+//        accumulators already take 128 registers a thread.
+// Any T >= 1 works: rows at or past T are loaded as zeros (by TMA in dkv),
+// masked, and not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -200,135 +211,205 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dkv: one warpgroup per block owns 64 keys; thread 0 also issues the
+// TMA loads.  K and V arrive once; Q, dO, LSE and Delta of each query tile
+// through a two-stage ring.
+// ---------------------------------------------------------------------------
+constexpr int kStages = 2;     // tile i in the products, tile i+1 in flight
+constexpr int kAtomRow = 128;  // bytes of one 64-column bf16 row: one swizzle atom
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int D>
 __host__ __device__ constexpr int dkv_q_rows() {
-  return D == 64 ? 64 : 32;  // query rows per tile of the dkv loop
+  // query rows per tile: at D=128 the dK and dV accumulators already take
+  // 128 registers a thread, so S^T and dP^T get 16 each
+  return D == 64 ? 64 : 32;
+}
+
+struct DkvMaps {
+  hopper::RowsMap q, k, v, dout;
+};
+
+template <int D>
+__host__ __device__ constexpr uint32_t dkv_stage_bytes() {
+  // Q and dO tiles, then the tile's LSE and Delta, rounded up to keep the
+  // next stage's tiles 1024-byte aligned
+  return (2 * (D / 64) * dkv_q_rows<D>() * kAtomRow + 2 * dkv_q_rows<D>() * 4 + 1023) / 1024 *
+         1024;
 }
 
 template <int D>
 constexpr size_t dkv_bf16_smem() {
-  // K, V [64 keys], Q, dO [query tile], then the tile's LSE and Delta
-  return sizeof(bf16) * (2 * kTile + 2 * dkv_q_rows<D>()) * (D + kPad) +
-         sizeof(float) * 2 * dkv_q_rows<D>();
+  return 1024 + 2 * (D / 64) * kTile * kAtomRow + kStages * dkv_stage_bytes<D>();
 }
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T_len, int causal,
-                      float scale, Strides st) {
-  constexpr int S = D + kPad;
+flash_dkv_bf16_kernel(const __grid_constant__ DkvMaps maps, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int T_len, int causal, float scale) {
+  using namespace hopper;
   constexpr int kQ = dkv_q_rows<D>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTile * S;
-  bf16* Qs = Vs + kTile * S;
-  bf16* dOs = Qs + kQ * S;
-  float* lse_s = reinterpret_cast<float*>(dOs + kQ * S);
-  float* delta_s = lse_s + kQ;
+  constexpr int kAtoms = D / 64;
+  constexpr uint32_t kKAtom = kTile * kAtomRow;  // bytes of one K or V atom tile
+  constexpr uint32_t kQAtom = kQ * kAtomRow;     // bytes of one Q or dO atom tile
+  constexpr uint32_t kStage = dkv_stage_bytes<D>();
+  constexpr uint32_t kStageTx = 2 * kAtoms * kQAtom;  // the TMA bytes of a stage
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ alignas(8) uint64_t bars[1 + kStages];  // K/V, then one per ring stage
 
-  const int bh = blockIdx.y;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + kAtoms * kKAtom;
+  const uint32_t sRing = sV + kAtoms * kKAtom;
+  const uint32_t kv_bar = smem_u32(&bars[0]);
+
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.y * kTile;  // the first key tiles see the most queries: they launch first
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int wrow = warp * 16;
+  // causal: query q sees key k only for k <= q, so the loop starts at k0
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = (T_len - q_begin + kQ - 1) / kQ;
 
-  const bf16* qb = q + b * st.q[0] + h * st.q[2];
-  const bf16* ob = dout + b * st.o[0] + h * st.o[2];
+  // Query tile i into ring stage i % kStages, called by every thread:
+  // thread 0 sends Q and dO by TMA; the tile's LSE and Delta come by 4-byte
+  // cp.async, one float a thread, because a head's rows start at
+  // bh * T * 4 bytes, which TMA cannot read from unless T % 4 == 0.  Each
+  // thread's arrival on the stage barrier waits for its own copy.
   const float* lse_b = lse + static_cast<long long>(bh) * T_len;
   const float* delta_b = delta + static_cast<long long>(bh) * T_len;
-  load_tile_bf16<D, kTile>(Ks, k + b * st.k[0] + h * st.k[2], st.k[1], k0, T_len, tid);
-  load_tile_bf16<D, kTile>(Vs, v + b * st.v[0] + h * st.v[2], st.v[1], k0, T_len, tid);
-
-  const int key[2] = {k0 + wrow + g, k0 + wrow + g + 8};
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  auto issue_q = [&](int i) {
+    const uint32_t stage = sRing + (i % kStages) * kStage;
+    const uint32_t bar = smem_u32(&bars[1 + i % kStages]);
+    const int q0 = q_begin + i * kQ;
+    if (tid == 0) {
+      mbar_expect_tx(bar, kStageTx);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  // causal: query q sees key k only for k <= q, so the loop starts at k0
-  for (int q0 = causal ? k0 : 0; q0 < T_len; q0 += kQ) {
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile_bf16<D, kQ>(Qs, qb, st.q[1], q0, T_len, tid);
-    load_tile_bf16<D, kQ>(dOs, ob, st.o[1], q0, T_len, tid);
-    for (int i = tid; i < kQ; i += kMmaThreads) {
-      const bool ok = q0 + i < T_len;
-      lse_s[i] = ok ? lse_b[q0 + i] : 0.f;
-      delta_s[i] = ok ? delta_b[q0 + i] : 0.f;
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_rows(maps.q, stage + a * kQAtom, bar, a * 64, h, q0, b);
+        tma_load_rows(maps.dout, stage + (kAtoms + a) * kQAtom, bar, a * 64, h, q0, b);
+      }
     }
-    __syncthreads();
+    if (tid < 2 * kQ) {  // LSE then Delta; zeros past T (those queries are masked)
+      const int qi = tid < kQ ? tid : tid - kQ;
+      const float* src = (tid < kQ ? lse_b : delta_b) + q0 + qi;
+      cp_async_4(stage + 2 * kAtoms * kQAtom + tid * 4, src, q0 + qi < T_len);
+    }
+    cp_async_arrive(bar);
+  };
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x kQ queries
-    float sT[kQ / 8][4], dpT[kQ / 8][4];
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int i = 1; i < 1 + kStages; ++i) mbar_init(smem_u32(&bars[i]), 1 + kMmaThreads);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * kAtoms * kKAtom);
 #pragma unroll
-    for (int nt = 0; nt < kQ / 8; ++nt)
+    for (int a = 0; a < kAtoms; ++a) {
+      tma_load_rows(maps.k, sK + a * kKAtom, kv_bar, a * 64, h, k0, b);
+      tma_load_rows(maps.v, sV + a * kKAtom, kv_bar, a * 64, h, k0, b);
+    }
+  }
+  for (int i = 0; i < kStages && i < n_tiles; ++i) issue_q(i);
+
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sT[nt][e] = dpT[nt][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t stage = sRing + (it % kStages) * kStage;
+    const uint32_t sQ = stage;
+    const uint32_t sdO = stage + kAtoms * kQAtom;
+    const float* lse_s = reinterpret_cast<const float*>(
+        smem_raw + (stage + 2 * kAtoms * kQAtom - raw));
+    const float* delta_s = lse_s + kQ;
+    const int q0 = q_begin + it * kQ;
+    mbar_wait(smem_u32(&bars[1 + it % kStages]), (it / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys x kQ
+    // queries: A = K or V, B = Q or dO, all K-major as they landed
+    float sT[kQ / 2], dpT[kQ / 2];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, Ks + wrow * S + kk * 16, S, g, t4);
-      load_a(av, Vs + wrow * S + kk * 16, S, g, t4);
+      const uint32_t off = (kk % 4) * 32;  // 16 bf16 within the atom
+      wgmma_ss(sT, desc_sw128(sK + (kk / 4) * kKAtom + off, 16, 1024),
+               desc_sw128(sQ + (kk / 4) * kQAtom + off, 16, 1024), kk > 0);
+    }
 #pragma unroll
-      for (int nt = 0; nt < kQ / 8; ++nt) {
-        const bf16* pq = Qs + (nt * 8 + g) * S + kk * 16 + 2 * t4;
-        mma_bf16(sT[nt], ak, ld32(pq), ld32(pq + 8));
-        const bf16* po = dOs + (nt * 8 + g) * S + kk * 16 + 2 * t4;
-        mma_bf16(dpT[nt], av, ld32(po), ld32(po + 8));
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss(dpT, desc_sw128(sV + (kk / 4) * kKAtom + off, 16, 1024),
+               desc_sw128(sdO + (kk / 4) * kQAtom + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(sT);
+    fence_operand(dpT);
+
+    // P^T = exp(S^T scale - LSE) on the unmasked entries and
+    // dS^T = P^T (dP^T - Delta) scale; LSE and Delta index the columns
+#pragma unroll
+    for (int i = 0; i < kQ / 2; ++i) {
+      const int qi = (i / 4) * 8 + 2 * t4 + (i & 1);
+      const int query = q0 + qi;
+      const int kpos = key[(i >> 1) & 1];
+      const bool valid = query < T_len && kpos < T_len && (!causal || kpos <= query);
+      const float p = valid ? exp2f(sT[i] * scale_log2 - lse_s[qi] * kLog2e) : 0.f;
+      dpT[i] = p * (dpT[i] - delta_s[qi]) * scale;
+      sT[i] = p;
     }
 
-    // P^T and dS^T; LSE and Delta index the columns (queries)
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (rounded to bf16) from
+    // registers, dO and Q read MN-major through the descriptor's transpose bit
+    uint32_t ap[kQ / 16][4], ads[kQ / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < kQ / 8; ++nt)
+    for (int kk = 0; kk < kQ / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t4 + (e & 1);
-        const int query = q0 + qi;
-        const int kpos = key[e >> 1];
-        const bool valid = query < T_len && kpos < T_len && (!causal || kpos <= query);
-        const float p = valid ? expf(sT[nt][e] * scale - lse_s[qi]) : 0.f;
-        dpT[nt][e] = p * (dpT[nt][e] - delta_s[qi]) * scale;
-        sT[nt][e] = p;
+        ap[kk][e] = pack_bf16(sT[8 * kk + 2 * e], sT[8 * kk + 2 * e + 1]);
+        ads[kk][e] = pack_bf16(dpT[8 * kk + 2 * e], dpT[8 * kk + 2 * e + 1]);
       }
-
-    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (rounded to bf16) are the
-    // A fragments; dO and Q are read transposed, two queries of one column
-    // at a time
+    wgmma_fence();
+    fence_operand(dv_acc);
+    fence_operand(dk_acc);
 #pragma unroll
     for (int kk = 0; kk < kQ / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      pack_a(ap, sT[2 * kk], sT[2 * kk + 1]);
-      pack_a(ads, dpT[2 * kk], dpT[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const bf16* po = dOs + (kk * 16 + 2 * t4) * S + n * 8 + g;
-        mma_bf16(dv_acc[n], ap, ld_col2(po, S), ld_col2(po + 8 * S, S));
-        const bf16* pq = Qs + (kk * 16 + 2 * t4) * S + n * 8 + g;
-        mma_bf16(dk_acc[n], ads, ld_col2(pq, S), ld_col2(pq + 8 * S, S));
-      }
+      wgmma_rs_tb(dv_acc, ap[kk], desc_sw128(sdO + kk * 16 * kAtomRow, kQAtom, 1024));
+      wgmma_rs_tb(dk_acc, ads[kk], desc_sw128(sQ + kk * 16 * kAtomRow, kQAtom, 1024));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(dv_acc);
+    fence_operand(dk_acc);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (it + kStages < n_tiles) issue_q(it + kStages);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = key[i];
+  for (int r = 0; r < 2; ++r) {
+    const int t = key[r];
     if (t >= T_len) continue;
     const long long at = ((static_cast<long long>(b) * T_len + t) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+          __floats2bfloat162_rn(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+          __floats2bfloat162_rn(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
     }
   }
 }
@@ -653,10 +734,27 @@ int dq_bf16(const Call& c) {
 
 template <int D>
 int dkv_bf16(const Call& c) {
-  return launch(flash_dkv_bf16_kernel<D>, c, kMmaThreads, dkv_bf16_smem<D>(), in<bf16>(c.q),
-                in<bf16>(c.k), in<bf16>(c.v), in<bf16>(c.dout), in<float>(c.lse),
-                in<float>(c.delta), out<bf16>(c.out0), out<bf16>(c.out1), c.H, c.T_len,
-                c.causal, c.scale, c.st);
+  const int B = c.BH / c.H, T = c.T_len;
+  DkvMaps maps;
+  const Strides& st = c.st;
+  cudaError_t err = hopper::make_rows_map(&maps.q, c.q, B, T, c.H, D, st.q[0], st.q[1], st.q[2],
+                                          dkv_q_rows<D>());
+  if (err == cudaSuccess)
+    err = hopper::make_rows_map(&maps.dout, c.dout, B, T, c.H, D, st.o[0], st.o[1], st.o[2],
+                                dkv_q_rows<D>());
+  if (err == cudaSuccess)
+    err = hopper::make_rows_map(&maps.k, c.k, B, T, c.H, D, st.k[0], st.k[1], st.k[2], kTile);
+  if (err == cudaSuccess)
+    err = hopper::make_rows_map(&maps.v, c.v, B, T, c.H, D, st.v[0], st.v[1], st.v[2], kTile);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dkv_bf16_smem<D>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(c.BH, (T + kTile - 1) / kTile);
+  flash_dkv_bf16_kernel<D><<<grid, kMmaThreads, dkv_bf16_smem<D>(), c.stream>>>(
+      maps, in<float>(c.lse), in<float>(c.delta), out<bf16>(c.out0), out<bf16>(c.out1), c.H, T,
+      c.causal, c.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>

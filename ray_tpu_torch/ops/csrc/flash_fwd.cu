@@ -8,47 +8,56 @@
 // per-row log-sum-exp m + log l in f32 beside the output.
 //
 // What bounds it on an H100.  At the largest prefill of GPT-2 small
-// (B=1, T=1024, H=12, D=64, bf16) causal attention is about 1.6 GFLOP of
-// matrix products against about 6 MB of q, k, v, O and LSE, each read or
-// written once: 1.6 us of tensor-core time at 989 TFLOP/s and 1.9 us of
-// memory time at 3.35 TB/s, so the bytes set the bound, and only just.
-// What the design does about the bytes: each q element is read from device
-// memory once, each k and v element once per query tile that needs it, the
-// scores and probabilities never leave the SM, and the reuse of a K/V tile
-// by the 64 rows of a query tile comes from shared memory.  What it does
-// about the operations: in bf16, both products run on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation).  It does not reach either bound:
-// 16 K/V tiles in a row for the last query tile, each loaded without
-// overlap, make the kernel latency-bound at this size; TMA-fed wgmma with
-// the next tile's load in flight is later work.  In f32 the kernel does its
-// arithmetic on the CUDA cores (67 TFLOP/s), the simple version kept for
-// f32 parity with the reference.
+// (B=1, T=1024, H=12, D=64, bf16, causal) the two products are 1.6 GFLOP
+// against 6.3 MB of q, k, v, O and LSE each read or written once: 1.6 us of
+// tensor-core time at 989 TFLOP/s against 1.9 us of memory time at
+// 3.35 TB/s, so the bytes set the bound, and only just.  At the training
+// shape (B=16) both grow 16-fold and the bytes still set it (30 us).  But
+// a causal prefill is a chain: the block of a head's last query tile walks
+// every K/V tile in turn, so at B=1 the kernel's time is that chain's
+// latency, not either bound; at B=16 it is the SMs' throughput.
 //
-// Layout.  q, k and v are [B, T, H, D], read through the strides the
-// wrapper passes (the last dimension must be contiguous; in bf16 the
-// pointers are 16-byte aligned and the strides multiples of 8 elements,
-// as the wrapper checks), so the q/k/v views that GPT-2 splits out of one
-// fused qkv projection need no copy.  O is written contiguous
-// [B, T, H, D] in the input type, LSE contiguous [B, H, T] in f32.
+// What the design does about it (bf16).  One warpgroup per block owns 64
+// query rows, the wgmma M.  Q and a two-stage ring of K/V tiles arrive by
+// TMA into 128-byte-swizzled shared tiles behind mbarriers, issued by one
+// thread, so tile j+1 is in flight while tile j is in the products and no
+// thread spends registers or instructions on copies.  S = Q K^T is a wgmma
+// with both operands in shared memory, K-major as they land.  O += P V is a
+// wgmma with P from registers (the S accumulator, rounded to bf16 as the
+// reference rounds its probabilities) and V read MN-major through the
+// descriptor's transpose bit: V is never transposed by a thread.  The grid
+// launches each head's heaviest query tile first, so the longest chains
+// start in the first wave.  TMA zero-fills rows past T; those keys are
+// masked to -1e30 (a zero key would score 0), those rows not written.
+// What still keeps it from the bound: within a block the steps run in
+// series (products, softmax, products), with no second warpgroup or
+// second S in flight to hide the softmax behind the tensor cores, and O
+// is written from registers rather than by a TMA store.
 //
-// Work split.  One block per (b*h, 64-row query tile); a loop inside the
-// block walks the 64-key tiles up to the diagonal, in place of the TPU's
-// sequential grid axis.  Any T >= 1 works: rows at or past T are not
-// written and keys at or past T are masked.
+// In f32 the kernel does its arithmetic on the CUDA cores (67 TFLOP/s),
+// the simple version kept for f32 parity with the reference.
+//
+// Layout.  q, k and v are [B, T, H, D], read through their strides (last
+// dimension contiguous; in bf16 16-byte-aligned pointers and strides in
+// multiples of 8 elements, which TMA needs and the wrapper checks), so the
+// q/k/v views that GPT-2 splits out of one fused qkv projection need no
+// copy.  O is written contiguous [B, T, H, D] in the input type, LSE
+// contiguous [B, H, T] in f32.  Any T >= 1, D in {64, 128}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBlockM = 64;  // query rows per block
-constexpr int kBlockN = 64;  // keys per K/V tile
+constexpr int kBlockM = 64;  // query rows per block (the wgmma M in bf16)
+constexpr int kBlockN = 64;  // keys per K/V tile of the f32 kernel
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -61,166 +70,187 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  4 warps, each owning 16 query rows of the tile, with
-// the m16n8k16 fragments of mma_bf16.cuh.
+// bf16: one warpgroup (4 warps) per block owns the 64 query rows; thread 0
+// also issues the TMA loads.
 // ---------------------------------------------------------------------------
-constexpr int kMmaWarps = kBlockM / 16;
-constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaThreads = 128;
+constexpr int kStages = 2;        // K/V ring: tile j in the products, tile j+1 in flight
+constexpr int kAtomRow = 128;     // bytes of one 64-column bf16 row: one swizzle atom
+constexpr float kLog2e = 1.4426950408889634f;
+
+#ifndef FLASH_FWD_BLOCK_N
+#define FLASH_FWD_BLOCK_N 64
+#endif
+
+// keys per K/V tile: 64, which scripts/flash_fwd_tile_sweep.py measured
+// faster than 128 at D=64 on both of the main path's shapes (the sweep
+// builds the source with FLASH_FWD_BLOCK_N set to each size); D=128 keeps
+// 64, so that two blocks fit an SM
+template <int D>
+__host__ __device__ constexpr int block_n() {
+  return D == 64 ? FLASH_FWD_BLOCK_N : 64;
+}
+
+struct FwdMaps {
+  hopper::RowsMap q, k, v;
+};
+
+template <int D>
+constexpr size_t bf16_smem_bytes() {
+  // Q, then kStages x (K, V), each D/64 swizzle-atom tiles; 1024 bytes of
+  // slack to align the first tile
+  return 1024 + (D / 64) * kAtomRow * (kBlockM + kStages * 2 * block_n<D>());
+}
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int H, int T_len, int causal, float scale,
-                      long long q_sb, long long q_st, long long q_sh, long long k_sb,
-                      long long k_st, long long k_sh, long long v_sb, long long v_st,
-                      long long v_sh) {
-  constexpr int kStride = D + kPad;         // Ks row stride (Q is staged there first)
-  constexpr int kVtStride = kBlockN + kPad;  // Vt row stride
-  constexpr int kChunks = D / 8;             // 16-byte chunks per row
-  __shared__ alignas(16) __nv_bfloat16 Ks[kBlockN * kStride];  // [key][d]
-  __shared__ alignas(16) __nv_bfloat16 Vt[D * kVtStride];      // [d][key]
+flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int T_len, int causal, float scale_log2) {
+  using namespace hopper;
+  constexpr int BN = block_n<D>();
+  constexpr int kAtoms = D / 64;
+  constexpr uint32_t kQAtom = kBlockM * kAtomRow;  // bytes of one Q atom tile
+  constexpr uint32_t kKVAtom = BN * kAtomRow;      // bytes of one K or V atom tile
+  constexpr uint32_t kStageBytes = 2 * kAtoms * kKVAtom;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ alignas(8) uint64_t bars[1 + kStages];  // Q, then one per ring stage
 
-  const int bh = blockIdx.y;
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sRing = sQ + kAtoms * kQAtom;
+  const uint32_t q_bar = smem_u32(&bars[0]);
+
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // the heaviest tiles launch first
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int wrow = warp * 16;
+  const int kv_end = causal ? min(T_len, q0 + kBlockM) : T_len;
+  const int n_tiles = (kv_end + BN - 1) / BN;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  // K and V of tile j into ring stage j % kStages
+  auto issue_kv = [&](int j) {
+    const uint32_t stage = sRing + (j % kStages) * kStageBytes;
+    const uint32_t bar = smem_u32(&bars[1 + j % kStages]);
+    mbar_expect_tx(bar, kStageBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      tma_load_rows(maps.k, stage + a * kKVAtom, bar, a * 64, h, j * BN, b);
+      tma_load_rows(maps.v, stage + (kAtoms + a) * kKVAtom, bar, a * 64, h, j * BN, b);
+    }
+  };
 
-  // stage the Q tile through Ks, then keep its A fragments in registers
-  for (int c = tid; c < kBlockM * kChunks; c += kMmaThreads) {
-    const int r = c / kChunks, col = (c - r * kChunks) * 8, t = q0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T_len) val = *reinterpret_cast<const uint4*>(qb + t * q_st + col);
-    *reinterpret_cast<uint4*>(Ks + r * kStride + col) = val;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    fence_barrier_init();
   }
   __syncthreads();
-  uint32_t qf[D / 16][4];
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, kAtoms * kQAtom);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = Ks + (wrow + g) * kStride + kk * 16 + 2 * tq;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * kStride);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * kStride + 8);
+    for (int a = 0; a < kAtoms; ++a) tma_load_rows(maps.q, sQ + a * kQAtom, q_bar, a * 64, h, q0, b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) issue_kv(j);
   }
 
-  float acc[D / 8][4];
+  float acc[D / 2];  // O: this thread's share of the warpgroup's 64 x D accumulator
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-  const int row[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max, in log2 units
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  const int kv_end = causal ? min(T_len, q0 + kBlockM) : T_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous Ks/Vt (or Q)
-    for (int c = tid; c < kBlockN * kChunks; c += kMmaThreads) {
-      const int r = c / kChunks, col = (c - r * kChunks) * 8, t = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (t < T_len) {
-        kv = *reinterpret_cast<const uint4*>(kb + t * k_st + col);
-        vv = *reinterpret_cast<const uint4*>(vb + t * v_st + col);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * kStride + col) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t stage = sRing + (j % kStages) * kStageBytes;
+    mbar_wait(smem_u32(&bars[1 + j % kStages]), (j / kStages) & 1);
+
+    // S = Q K^T: A = Q, B = the K tile, both K-major as they landed
+    float s[BN / 2];
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(col + e) * kVtStride + r] = ve[e];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 bf16 within the atom
+      wgmma_ss(s, desc_sw128(sQ + (kk / 4) * kQAtom + off, 16, 1024),
+               desc_sw128(stage + (kk / 4) * kKVAtom + off, 16, 1024), kk > 0);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 tiles of 8 keys
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = Ks + (nt * 8 + g) * kStride + kk * 16 + 2 * tq;
-        mma_bf16(s[nt], qf[kk], ld32(p), ld32(p + 8));
-      }
-    }
-
-    // mask, scale, online softmax (rows are shared by the 4 lanes of a group)
+    // mask, scale (to log2 units), online softmax; a row's values sit in
+    // the 4 lanes of a quad
+    const int k0 = j * BN;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * tq + (e & 1);
-        const int r = row[e >> 1];
-        const bool valid = key < T_len && (!causal || key <= r);
-        s[nt][e] = valid ? s[nt][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      const int key = k0 + (i / 4) * 8 + 2 * tq + (i & 1);
+      const int r = row[(i >> 1) & 1];
+      const bool valid = key < T_len && (!causal || key <= r);
+      s[i] = valid ? s[i] * scale_log2 : kNegInf;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
     float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // masked entries hold kNegInf, which underflows to 0 unless the
-        // whole row is masked (only rows past T): zero them explicitly
-        const float p = s[nt][e] == kNegInf ? 0.f : expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int i = 0; i < BN / 2; ++i) {
+      // masked entries hold kNegInf: zero them explicitly
+      const float p = s[i] == kNegInf ? 0.f : exp2f(s[i] - m[(i >> 1) & 1]);
+      s[i] = p;
+      l[(i >> 1) & 1] += p;
     }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: P's accumulator fragments are the A fragments of the next
-    // product, rounded to bf16 (as the reference rounds its probabilities)
+    // O += P V: P (rounded to bf16, as the reference rounds it) from
+    // registers, V read MN-major through the descriptor's transpose bit
+    uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* p = Vt + (n * 8 + g) * kVtStride + kk * 16 + 2 * tq;
-        mma_bf16(acc[n], a, ld32(p), ld32(p + 8));
-      }
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+    const uint32_t sV = stage + kAtoms * kKVAtom;
+    wgmma_fence();
+    fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_tb(acc, pa[kk], desc_sw128(sV + kk * 16 * kAtomRow, kKVAtom, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && j + kStages < n_tiles) issue_kv(j + kStages);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = row[i];
+  for (int r = 0; r < 2; ++r) {
+    const int t = row[r];
     if (t >= T_len) continue;
-    const float inv = 1.f / l[i];
+    const float inv = 1.f / l[r];
     __nv_bfloat16* orow = o + ((static_cast<long long>(b) * T_len + t) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-    if (tq == 0) lse[static_cast<long long>(bh) * T_len + t] = m[i] + logf(l[i]);
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+    if (tq == 0) lse[static_cast<long long>(bh) * T_len + t] = m[r] / kLog2e + logf(l[r]);
   }
 }
 
@@ -370,12 +400,20 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                 int T_len, int causal, float scale, const long long* st, cudaStream_t stream) {
-  const dim3 grid((T_len + kBlockM - 1) / kBlockM, B * H);
-  flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, T_len, causal, scale, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8]);
+  FwdMaps maps;
+  cudaError_t err = hopper::make_rows_map(&maps.q, q, B, T_len, H, D, st[0], st[1], st[2], kBlockM);
+  if (err == cudaSuccess)
+    err = hopper::make_rows_map(&maps.k, k, B, T_len, H, D, st[3], st[4], st[5], block_n<D>());
+  if (err == cudaSuccess)
+    err = hopper::make_rows_map(&maps.v, v, B, T_len, H, D, st[6], st[7], st[8], block_n<D>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bf16_smem_bytes<D>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (T_len + kBlockM - 1) / kBlockM);
+  flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, bf16_smem_bytes<D>(), stream>>>(
+      maps, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, T_len, causal,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-// bf16 tensor-core fragment helpers shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu).
+// bf16 tensor-core fragment helpers of the mma.sync dq kernel (B2,
+// flash_bwd.cu); the wgmma kernels (hopper.cuh) share its pack_bf16, its
+// mask value and its fragment layout, which is wgmma's per warp.
 //
 // mma.sync m16n8k16, row.col, f32 accumulation.  In a warp, lane
 // (g = lane / 4, t = lane % 4) holds:

@@ -60,7 +60,8 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 def _kernel_layout_ok(t: torch.Tensor) -> bool:
     """The kernels read rows through the strides, with a contiguous last
-    dimension; the bf16 kernels move them in 16-byte vectors."""
+    dimension; in bf16 they load them by TMA (or 16-byte vectors), which
+    needs 16-byte-aligned rows."""
     if t.stride(-1) != 1:
         return False
     return t.dtype != torch.bfloat16 or (

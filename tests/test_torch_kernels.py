@@ -99,3 +99,85 @@ def test_flash_attention_function_on_card(dtype):
     ref_out, ref_gx = grads(qkv.cpu())
     assert _rel_err(out.cpu(), ref_out) <= (1e-4 if dt == torch.float32 else 2e-2)
     assert _rel_err(gx.cpu(), ref_gx) <= BWD_TOL[dtype]
+
+
+# The bf16 forward (B1) and dkv (B3) kernels load their tiles by TMA, which
+# fills rows past T with zeros, in tiles of 128 keys (B1 at D=64), 64 keys
+# (B1 at D=128, B3) and 64 or 32 queries (B3 at D=64, D=128): T on both
+# sides of each tile edge, B=2 with q/k/v strided views of one fused
+# projection, both head dims, causal and not.
+EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 1000]
+
+
+def _fused_qkv(B, T, D, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, T, 3 * 12 * D, generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn(B, T, 12, D, generator=g, device="cuda").to(torch.bfloat16)
+    return (*(t.unflatten(-1, (12, D)) for t in qkv.split(12 * D, dim=-1)), do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", EDGE_TS)
+def test_flash_fwd_bf16_tile_edges_on_card(T, D, causal):
+    """B1 in bf16 against its plain version at the tile edges (tolerances
+    as above: 2e-2 on O, 1e-3 on the float32 LSE)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    q, k, v, _ = _fused_qkv(2, T, D, seed=T * 4 + D + causal)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    assert out.shape == q.shape and lse.shape == (2, 12, T)
+    assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", EDGE_TS)
+def test_flash_bwd_bf16_tile_edges_on_card(T, D, causal):
+    """B3 (and B2 beside it) in bf16 against their plain versions at the
+    tile edges, 1e-2 of each gradient's largest entry.  At T=1 the softmax
+    over one key is constant, so dQ and dK are zero but for rounding: there
+    they are held within 1e-2 of the largest dV entry instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    q, k, v, do = _fused_qkv(2, T, D, seed=1000 + T * 4 + D + causal)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    dv_scale = ref[2].float().abs().max().item()
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        if T == 1 and name != "dv":
+            assert a.float().abs().max().item() <= 1e-2 * dv_scale, name
+        else:
+            assert _rel_err(a, b) <= BWD_TOL["bfloat16"], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [65, 1000])
+def test_flash_bf16_head_major_views_on_card(T):
+    """B1 and B3 on q/k/v/dO that are [B, H, T, D] tensors seen as
+    [B, T, H, D] (the head stride above the time stride): the tensor maps
+    order the outer dimensions by stride, so the kernels read these views
+    without a copy.  Tolerances as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(T)
+    q, k, v, do = (torch.randn(2, 12, T, 64, generator=g, device="cuda").to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
+    assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, b) <= BWD_TOL["bfloat16"], name
