@@ -77,8 +77,9 @@ TRAIN_B, TRAIN_T, TRAIN_LR = 16, 1024, 3e-4
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # kernel-vs-plain cases, (T, dtype, causal, D, fused q/k/v): the prefill
 # buckets' range with ragged 100, both dtypes, one non-causal case and
-# D=128 per dtype; then bf16 on both sides of the TMA tile edges (B1's
-# 128-key and 64-key tiles, B3's 64-key and 64- or 32-query tiles)
+# D=128 per dtype; then bf16 on both sides of the first and second TMA
+# tile edges (64-key tiles in B1 and B3; 64-query tiles in B1, and in B3
+# 64 at D=64, 32 at D=128)
 _DTYPES = (torch.bfloat16, torch.float32)
 EDGE_TS = (1, 63, 65, 127, 129, 1000)
 KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]

@@ -747,8 +747,7 @@ int dkv_bf16(const Call& c) {
   if (err == cudaSuccess)
     err = hopper::make_rows_map(&maps.v, c.v, B, T, c.H, D, st.v[0], st.v[1], st.v[2], kTile);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dkv_bf16_smem<D>()));
+    err = hopper::allow_smem<flash_dkv_bf16_kernel<D>>(static_cast<int>(dkv_bf16_smem<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(c.BH, (T + kTile - 1) / kTile);
   flash_dkv_bf16_kernel<D><<<grid, kMmaThreads, dkv_bf16_smem<D>(), c.stream>>>(

@@ -57,7 +57,7 @@ namespace {
 using namespace flash;
 
 constexpr int kBlockM = 64;  // query rows per block (the wgmma M in bf16)
-constexpr int kBlockN = 64;  // keys per K/V tile of the f32 kernel
+constexpr int kBlockN = 64;  // keys per K/V tile
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -78,19 +78,6 @@ constexpr int kStages = 2;        // K/V ring: tile j in the products, tile j+1 
 constexpr int kAtomRow = 128;     // bytes of one 64-column bf16 row: one swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
 
-#ifndef FLASH_FWD_BLOCK_N
-#define FLASH_FWD_BLOCK_N 64
-#endif
-
-// keys per K/V tile: 64, which scripts/flash_fwd_tile_sweep.py measured
-// faster than 128 at D=64 on both of the main path's shapes (the sweep
-// builds the source with FLASH_FWD_BLOCK_N set to each size); D=128 keeps
-// 64, so that two blocks fit an SM
-template <int D>
-__host__ __device__ constexpr int block_n() {
-  return D == 64 ? FLASH_FWD_BLOCK_N : 64;
-}
-
 struct FwdMaps {
   hopper::RowsMap q, k, v;
 };
@@ -99,7 +86,7 @@ template <int D>
 constexpr size_t bf16_smem_bytes() {
   // Q, then kStages x (K, V), each D/64 swizzle-atom tiles; 1024 bytes of
   // slack to align the first tile
-  return 1024 + (D / 64) * kAtomRow * (kBlockM + kStages * 2 * block_n<D>());
+  return 1024 + (D / 64) * kAtomRow * (kBlockM + kStages * 2 * kBlockN);
 }
 
 template <int D>
@@ -107,10 +94,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int H, int T_len, int causal, float scale_log2) {
   using namespace hopper;
-  constexpr int BN = block_n<D>();
   constexpr int kAtoms = D / 64;
   constexpr uint32_t kQAtom = kBlockM * kAtomRow;  // bytes of one Q atom tile
-  constexpr uint32_t kKVAtom = BN * kAtomRow;      // bytes of one K or V atom tile
+  constexpr uint32_t kKVAtom = kBlockN * kAtomRow;  // bytes of one K or V atom tile
   constexpr uint32_t kStageBytes = 2 * kAtoms * kKVAtom;
   extern __shared__ unsigned char smem_raw[];
   __shared__ alignas(8) uint64_t bars[1 + kStages];  // Q, then one per ring stage
@@ -129,7 +115,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int kv_end = causal ? min(T_len, q0 + kBlockM) : T_len;
-  const int n_tiles = (kv_end + BN - 1) / BN;
+  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
 
   // K and V of tile j into ring stage j % kStages
   auto issue_kv = [&](int j) {
@@ -138,8 +124,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
     mbar_expect_tx(bar, kStageBytes);
 #pragma unroll
     for (int a = 0; a < kAtoms; ++a) {
-      tma_load_rows(maps.k, stage + a * kKVAtom, bar, a * 64, h, j * BN, b);
-      tma_load_rows(maps.v, stage + (kAtoms + a) * kKVAtom, bar, a * 64, h, j * BN, b);
+      tma_load_rows(maps.k, stage + a * kKVAtom, bar, a * 64, h, j * kBlockN, b);
+      tma_load_rows(maps.v, stage + (kAtoms + a) * kKVAtom, bar, a * 64, h, j * kBlockN, b);
     }
   };
 
@@ -168,7 +154,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
     mbar_wait(smem_u32(&bars[1 + j % kStages]), (j / kStages) & 1);
 
     // S = Q K^T: A = Q, B = the K tile, both K-major as they landed
-    float s[BN / 2];
+    float s[kBlockN / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -182,10 +168,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
 
     // mask, scale (to log2 units), online softmax; a row's values sit in
     // the 4 lanes of a quad
-    const int k0 = j * BN;
+    const int k0 = j * kBlockN;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
+    for (int i = 0; i < kBlockN / 2; ++i) {
       const int key = k0 + (i / 4) * 8 + 2 * tq + (i & 1);
       const int r = row[(i >> 1) & 1];
       const bool valid = key < T_len && (!causal || key <= r);
@@ -202,7 +188,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
+    for (int i = 0; i < kBlockN / 2; ++i) {
       // masked entries hold kNegInf: zero them explicitly
       const float p = s[i] == kNegInf ? 0.f : exp2f(s[i] - m[(i >> 1) & 1]);
       s[i] = p;
@@ -213,9 +199,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
 
     // O += P V: P (rounded to bf16, as the reference rounds it) from
     // registers, V read MN-major through the descriptor's transpose bit
-    uint32_t pa[BN / 16][4];
+    uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
       pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
       pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
       pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -225,7 +211,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
     wgmma_fence();
     fence_operand(acc);
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
       wgmma_rs_tb(acc, pa[kk], desc_sw128(sV + kk * 16 * kAtomRow, kKVAtom, 1024));
     wgmma_commit();
     wgmma_wait<0>();
@@ -403,12 +389,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   FwdMaps maps;
   cudaError_t err = hopper::make_rows_map(&maps.q, q, B, T_len, H, D, st[0], st[1], st[2], kBlockM);
   if (err == cudaSuccess)
-    err = hopper::make_rows_map(&maps.k, k, B, T_len, H, D, st[3], st[4], st[5], block_n<D>());
+    err = hopper::make_rows_map(&maps.k, k, B, T_len, H, D, st[3], st[4], st[5], kBlockN);
   if (err == cudaSuccess)
-    err = hopper::make_rows_map(&maps.v, v, B, T_len, H, D, st[6], st[7], st[8], block_n<D>());
+    err = hopper::make_rows_map(&maps.v, v, B, T_len, H, D, st[6], st[7], st[8], kBlockN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bf16_smem_bytes<D>()));
+    err = hopper::allow_smem<flash_fwd_bf16_kernel<D>>(static_cast<int>(bf16_smem_bytes<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (T_len + kBlockM - 1) / kBlockM);
   flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, bf16_smem_bytes<D>(), stream>>>(

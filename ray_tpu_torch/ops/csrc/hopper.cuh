@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace hopper {
 
 // A [B, T, H, D] bf16 tensor as a TMA map of [rows x 64] boxes.  The three
@@ -311,6 +313,22 @@ inline cudaError_t make_rows_map(RowsMap* out, const void* base, int B, int T, i
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Lets Kernel take `bytes` of dynamic shared memory.  The attribute lasts as
+// long as the device's context, so it is set once per device (on every
+// call past the 64th device).
+template <auto Kernel>
+inline cudaError_t allow_smem(int bytes) {
+  static std::atomic<unsigned long long> done{0};  // bit d: set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace hopper

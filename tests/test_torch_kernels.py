@@ -102,10 +102,10 @@ def test_flash_attention_function_on_card(dtype):
 
 
 # The bf16 forward (B1) and dkv (B3) kernels load their tiles by TMA, which
-# fills rows past T with zeros, in tiles of 128 keys (B1 at D=64), 64 keys
-# (B1 at D=128, B3) and 64 or 32 queries (B3 at D=64, D=128): T on both
-# sides of each tile edge, B=2 with q/k/v strided views of one fused
-# projection, both head dims, causal and not.
+# fills rows past T with zeros, in tiles of 64 keys (B1 and B3 at D=64 and
+# 128), 64 queries (B1; B3 at D=64) and 32 queries (B3 at D=128): T on both
+# sides of the first and second tile edges, B=2 with q/k/v strided views of
+# one fused projection, both head dims, causal and not.
 EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 1000]
 
 
