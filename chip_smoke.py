@@ -17,7 +17,11 @@ and prints no result line):
                   plain versions at the same shapes; B1, B2 and B3 held
                   against their plain versions at the training shape
                   [16, 1024, 12, 64] bf16 causal, then timed there beside
-                  their plain versions, bounds and the library's attention.
+                  their plain versions, bounds and the library's attention;
+                  then the host's cost of a launch: the wall clock of 200
+                  back-to-back calls of each wrapper at [1, 64, 12, 64],
+                  bf16 (which encodes TMA tensor maps) and f32 (which
+                  does not), beside the kernels' device time there.
 5. parity       — GPT-2 small at full width in float32: the engine's greedy
                   tokens equal the full-forward generate_greedy oracle's.
 6. serve        — the serving path: GPT-2 small in bfloat16 serving 16
@@ -78,8 +82,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # kernel-vs-plain cases, (T, dtype, causal, D, fused q/k/v): the prefill
 # buckets' range with ragged 100, both dtypes, one non-causal case and
 # D=128 per dtype; then bf16 on both sides of the first and second TMA
-# tile edges (64-key tiles in B1 and B3; 64-query tiles in B1, and in B3
-# 64 at D=64, 32 at D=128)
+# tile edges (64-key tiles in B1, B2 and B3; 64-query tiles in B1 and B2,
+# and in B3 64 at D=64, 32 at D=128)
 _DTYPES = (torch.bfloat16, torch.float32)
 EDGE_TS = (1, 63, 65, 127, 129, 1000)
 KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]
@@ -347,11 +351,13 @@ def phase_bwd_kernels(card: str) -> list:
     dkv_plain = _time_ms(lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta),
                          reps=3, rounds=3)
     bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    delta_ms = _time_ms(lambda: fa._delta(o, do))
     # the library computes dq, dk and dv in one backward call
     bwd_lib = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                                    retain_graph=True))
     lib_note = {"library_call": "scaled_dot_product_attention backward: dq, dk and dv in "
-                                "one call", "flash_attention_bwd_ms": bwd_ms}
+                                "one call", "flash_attention_bwd_ms": bwd_ms,
+                "delta_ms": delta_ms}
     recs = [
         _record("flash_attention_fwd", "train", shape, fwd_ms, fwd_plain, fwd_lib,
                 *_fwd_work(*shape), fwd_err, max_abs_err_lse=lse_err),
@@ -363,9 +369,66 @@ def phase_bwd_kernels(card: str) -> list:
     ]
     for rec in recs:
         _print_record("bwd kernels", rec, card)
-    print(f"[bwd kernels] backward at {shape}: Delta + dq + dkv {bwd_ms:.4f} ms, library "
-          f"backward {bwd_lib:.4f} ms — {card}", flush=True)
+    print(f"[bwd kernels] backward at {shape}: Delta + dq + dkv {bwd_ms:.4f} ms (Delta alone, "
+          f"in torch, {delta_ms:.4f} ms), library backward {bwd_lib:.4f} ms — {card}",
+          flush=True)
     return recs
+
+
+HOST_SHAPE, HOST_CALLS, HOST_ROUNDS = (1, 64, 12, 64), 200, 5
+
+
+def _host_calls(dt: torch.dtype) -> dict:
+    """The three wrappers as calls on HOST_SHAPE inputs of one dtype."""
+    g = torch.Generator(device="cuda").manual_seed(400)
+    q, k, v, do = (torch.randn(*HOST_SHAPE, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa._delta(o, do)
+    return {
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v),
+        "flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+        "flash_attention_dkv": lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
+    }
+
+
+def phase_host_cost(card: str) -> dict:
+    """The host's cost of one call of each wrapper: the wall clock of
+    HOST_CALLS back-to-back calls, synchronised only at the end, median of
+    HOST_ROUNDS rounds with bf16 and f32 in turns, at a shape whose kernels
+    take less device time than the host takes to launch them (the device
+    time per call, timed apart, is printed beside it to show that).  A bf16
+    call encodes four TMA tensor maps (three for B1), an f32 call none; the
+    rest of the path (checks, allocation, ctypes) is the same."""
+    calls = {dt: _host_calls(dt) for dt in (torch.bfloat16, torch.float32)}
+    res = {}
+    for name in calls[torch.bfloat16]:
+        walls = {dt: [] for dt in calls}
+        for _ in range(HOST_ROUNDS):
+            for dt, fns in calls.items():
+                fn = fns[name]
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                walls[dt].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        for dt, fns in calls.items():
+            wall_us = statistics.median(walls[dt])
+            # few calls a run, so that the host queues them within the
+            # device-side sleep and only device time is timed
+            device_us = _time_ms(fns[name], reps=4) * 1e3
+            res[f"{name} {str(dt)[6:]}"] = {"wall_us_per_call": wall_us,
+                                            "wall_us_rounds": walls[dt],
+                                            "device_us_per_call": device_us}
+            print(f"[host] {name} {str(dt)[6:]:8s} at {list(HOST_SHAPE)}: {wall_us:.2f} us a "
+                  f"call, median of {HOST_ROUNDS} rounds of {HOST_CALLS} back-to-back calls "
+                  f"({min(walls[dt]):.2f}..{max(walls[dt]):.2f}); device {device_us:.2f} us a "
+                  f"call — {card}", flush=True)
+    print("[host] " + json.dumps(res), flush=True)
+    return res
 
 
 async def _drain(req) -> list:
@@ -751,6 +814,7 @@ def main() -> int:
     phase_build()
     fwd_rec = phase_kernels(card)
     train_recs = phase_bwd_kernels(card)
+    phase_host_cost(card)
     phase_parity(card)
     serve = phase_serve(card)
     fwd_rec["launches"] = serve["flash_launches"]

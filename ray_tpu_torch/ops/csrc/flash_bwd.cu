@@ -19,27 +19,38 @@
 // four products (S^T and dP^T are recomputed, then dV and dK), 51.6 GFLOP
 // against 153 MB: 52 us against 46 us.  So the operations set both bounds.
 //
-// B3 (bf16), designed for Hopper.  One warpgroup per block owns 64 keys, the
-// wgmma M; its K and V tiles arrive once by TMA, and the Q and dO of each
-// query tile through a two-stage ring of 128-byte-swizzled shared tiles
-// behind mbarriers, issued by one thread, so tile i+1 is in flight while
-// tile i is in the products.  The tile's LSE and Delta ride the same
-// barrier by 4-byte cp.async, one float a thread: a head's rows start at
-// (b*H + h) * T floats, which TMA cannot read from when T % 4 != 0.  S^T = K Q^T and dP^T = V dO^T
-// are wgmma with both operands in shared memory, K-major as they land; their
-// accumulators, turned into P^T and dS^T (rounded to bf16), are the register
-// A operands of dV += P^T dO and dK += dS^T Q, whose B operands dO and Q
-// are read MN-major through the descriptor's transpose bit: nothing is
-// gathered or transposed by a thread.  The grid launches the first key
-// tiles, which see the most queries, first.  What still keeps it from the
-// bound: within a block the two product pairs and the elementwise step run
-// in series, and each query tile is loaded by every key block that needs
-// it (64 keys a block).
+// What the design does about it (bf16).  Each kernel runs one warpgroup per
+// block, which owns 64 rows, the wgmma M: queries in B2, keys in B3.  The
+// block's own two tiles (Q and dO in B2, K and V in B3) arrive once by TMA;
+// the other side's tiles come through a two-stage ring of 128-byte-swizzled
+// shared tiles behind mbarriers, issued by one thread, so tile i+1 is in
+// flight while tile i is in the products and no thread spends registers or
+// instructions on copies.  The two score products (S = Q K^T and
+// dP = dO V^T in B2, their transposes in B3) are wgmma with both operands in
+// shared memory, K-major as they land, issued together and committed once.
+// Their accumulators, turned into P and dS in f32 and rounded to bf16, are
+// the register A operands of the gradient products, whose B operand is read
+// MN-major through the descriptor's transpose bit: nothing is gathered or
+// transposed by a thread.  The grid launches the heaviest blocks first.
+//   B2: K/V tiles of 64 keys walk up to the diagonal; dQ += dS K reads the
+//       K tile that S used.  The block's LSE and Delta rows are loaded into
+//       registers once.  At D=128 the 64-key tile stays: the dQ accumulator
+//       takes 64 registers a thread and S and dP 32 each, fewer than B3's
+//       128 + 32 there: ptxas (nvcc 12.9, sm_90a) gives B2 155 registers
+//       at D=128 and 123 at D=64, with no spill.
+//   B3: query tiles of 64 rows (32 at D=128, where the dK and dV
+//       accumulators already take 128 registers a thread) walk from the
+//       diagonal on; each tile's LSE and Delta ride its stage barrier by
+//       4-byte cp.async, one float a thread, because a head's rows start at
+//       (b*H + h) * T floats, which TMA cannot read from when T % 4 != 0.
+// What still keeps them from the bound: within a block the score products,
+// the elementwise step and the gradient products run in series, so the
+// tensor cores wait on the CUDA cores unless another block on the SM has
+// products to issue; each tile of the other side is loaded by every block
+// that needs it; the gradients are written from registers.
 //
-// B2 (bf16) is PR 2's simple version: mma.sync m16n8k16 fragments from
-// padded shared tiles loaded synchronously, K gathered two bf16 at a time
-// for dQ += dS K.  In f32 both kernels do their arithmetic on the CUDA cores
-// (67 TFLOP/s), the simple version kept for f32 parity with the reference.
+// In f32 both kernels do their arithmetic on the CUDA cores (67 TFLOP/s),
+// the simple version kept for f32 parity with the reference.
 //
 // Layout.  q, k, v and dO are [B, T, H, D], read through the strides the
 // wrapper passes (last dimension contiguous; in bf16 16-byte-aligned
@@ -47,16 +58,8 @@
 // TMA needs), so the q/k/v views of GPT-2's fused qkv projection need no
 // copy.  LSE and Delta are contiguous [B, H, T] f32.  dQ, dK, dV are written
 // contiguous [B, T, H, D] in the input type, each rounded once from its f32
-// sum.
-//
-// Work split, in place of the TPU's sequential grid axis:
-//   dq:  one block per (b*h, 64-row query tile); a loop walks the 64-key K/V
-//        tiles up to the diagonal.
-//   dkv: one block per (b*h, 64-key tile); a loop walks the query tiles from
-//        the diagonal on: 64 rows at D=64, 32 at D=128, where the dK and dV
-//        accumulators already take 128 registers a thread.
-// Any T >= 1 works: rows at or past T are loaded as zeros (by TMA in dkv),
-// masked, and not written.
+// sum.  Any T >= 1: rows at or past T are loaded as zeros (by TMA in bf16),
+// masked, and not written; D in {64, 128}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,11 +67,10 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;  // the block's own rows: queries in dq, keys in dkv
@@ -78,158 +80,180 @@ struct Strides {  // in elements: batch, time, head of q, k, v and dO
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  4 warps, each owning 16 rows of the block's tile.
+// bf16: tensor cores.  One warpgroup (4 warps) per block owns its 64 rows;
+// thread 0 also issues the TMA loads.
 // ---------------------------------------------------------------------------
 constexpr int kMmaThreads = 128;
+constexpr int kStages = 2;     // tile i in the products, tile i+1 in flight
+constexpr int kAtomRow = 128;  // bytes of one 64-column bf16 row: one swizzle atom
+constexpr uint32_t kAtomTile = kTile * kAtomRow;  // bytes of one 64-row atom tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-// rows [t0, t0 + kRows) of one head of a [B, T, H, D] tensor into a shared
-// tile of row stride D + kPad, zeros at or past T
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long long st, int t0,
-                                               int T_len, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int S = D + kPad;
-  for (int c = tid; c < kRows * kChunks; c += kMmaThreads) {
-    const int r = c / kChunks, col = (c - r * kChunks) * 8, t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T_len) val = *reinterpret_cast<const uint4*>(src + t * st + col);
-    *reinterpret_cast<uint4*>(dst + r * S + col) = val;
-  }
-}
+struct BwdMaps {
+  RowsMap q, k, v, dout;
+};
 
+// ---------------------------------------------------------------------------
+// bf16 dq: the block owns 64 queries.  Q and dO arrive once; K and V of
+// each 64-key tile through the ring.
+// ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t dq_bf16_smem() {
-  return sizeof(bf16) * 4 * kTile * (D + kPad);  // Q, dO, K, V
+  // Q and dO, then kStages x (K, V), each D/64 atom tiles; 1024 bytes of
+  // slack to align the first tile
+  return 1024 + (D / 64) * kAtomTile * (2 + 2 * kStages);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, int H, int T_len, int causal, float scale,
-                     Strides st) {
-  constexpr int S = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTile * S;
-  bf16* Ks = dOs + kTile * S;
-  bf16* Vs = Ks + kTile * S;
+flash_dq_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq, int H, int T_len,
+                     int causal, float scale) {
+  constexpr int kAtoms = D / 64;
+  constexpr uint32_t kStageBytes = 2 * kAtoms * kAtomTile;  // K, then V
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ alignas(8) uint64_t bars[1 + kStages];  // Q and dO, then one per ring stage
 
-  const int bh = blockIdx.y;
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + kAtoms * kAtomTile;
+  const uint32_t sRing = sdO + kAtoms * kAtomTile;
+  const uint32_t q_bar = smem_u32(&bars[0]);
+
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // the heaviest tiles launch first
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int wrow = warp * 16;
+  const int kv_end = causal ? min(T_len, q0 + kTile) : T_len;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
 
-  const bf16* kb = k + b * st.k[0] + h * st.k[2];
-  const bf16* vb = v + b * st.v[0] + h * st.v[2];
-  load_tile_bf16<D, kTile>(Qs, q + b * st.q[0] + h * st.q[2], st.q[1], q0, T_len, tid);
-  load_tile_bf16<D, kTile>(dOs, dout + b * st.o[0] + h * st.o[2], st.o[1], q0, T_len, tid);
+  // K and V of tile j into ring stage j % kStages
+  auto issue_kv = [&](int j) {
+    const uint32_t stage = sRing + (j % kStages) * kStageBytes;
+    const uint32_t bar = smem_u32(&bars[1 + j % kStages]);
+    mbar_expect_tx(bar, kStageBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      tma_load_rows(maps.k, stage + a * kAtomTile, bar, a * 64, h, j * kTile, b);
+      tma_load_rows(maps.v, stage + (kAtoms + a) * kAtomTile, bar, a * 64, h, j * kTile, b);
+    }
+  };
 
-  const int row[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, 2 * kAtoms * kAtomTile);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      tma_load_rows(maps.q, sQ + a * kAtomTile, q_bar, a * 64, h, q0, b);
+      tma_load_rows(maps.dout, sdO + a * kAtomTile, q_bar, a * 64, h, q0, b);
+    }
+    for (int j = 0; j < kStages && j < n_tiles; ++j) issue_kv(j);
+  }
+
+  // this thread's two rows' LSE (in log2 units) and Delta, for every tile
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool ok = row[i] < T_len;
-    const long long at = static_cast<long long>(bh) * T_len + row[i];
-    lse_r[i] = ok ? lse[at] : 0.f;
-    delta_r[i] = ok ? delta[at] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row[r] < T_len;
+    const long long at = static_cast<long long>(bh) * T_len + row[r];
+    lse_r[r] = ok ? lse[at] * kLog2e : 0.f;
+    delta_r[r] = ok ? delta[at] : 0.f;
   }
 
-  float acc[D / 8][4];
+  float acc[D / 2];  // dQ: this thread's share of the warpgroup's 64 x D sum
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
 
-  const int kv_end = causal ? min(T_len, q0 + kTile) : T_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, kTile>(Ks, kb, st.k[1], k0, T_len, tid);
-    load_tile_bf16<D, kTile>(Vs, vb, st.v[1], k0, T_len, tid);
-    __syncthreads();
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t sK = sRing + (j % kStages) * kStageBytes;
+    const uint32_t sV = sK + kAtoms * kAtomTile;
+    mbar_wait(smem_u32(&bars[1 + j % kStages]), (j / kStages) & 1);
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    // S = Q K^T and dP = dO V^T for the warpgroup's 64 queries x 64 keys:
+    // A = Q or dO, B = the K or V tile, all K-major as they landed
+    float s[kTile / 2], dp[kTile / 2];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, Qs + wrow * S + kk * 16, S, g, t4);
-      load_a(ado, dOs + wrow * S + kk * 16, S, g, t4);
+      const uint32_t off = (kk / 4) * kAtomTile + (kk % 4) * 32;  // 16 bf16 within the atom
+      wgmma_ss(s, desc_sw128(sQ + off, 16, 1024), desc_sw128(sK + off, 16, 1024), kk > 0);
+    }
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const bf16* pk = Ks + (nt * 8 + g) * S + kk * 16 + 2 * t4;
-        mma_bf16(s[nt], aq, ld32(pk), ld32(pk + 8));
-        const bf16* pv = Vs + (nt * 8 + g) * S + kk * 16 + 2 * t4;
-        mma_bf16(dp[nt], ado, ld32(pv), ld32(pv + 8));
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kAtomTile + (kk % 4) * 32;
+      wgmma_ss(dp, desc_sw128(sdO + off, 16, 1024), desc_sw128(sV + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+
+    // P = exp(S scale - LSE) on the unmasked entries (a key past T was
+    // loaded as zeros and scores 0, so it is masked too);
+    // dS = P (dP - Delta) scale
+    const int k0 = j * kTile;
+#pragma unroll
+    for (int i = 0; i < kTile / 2; ++i) {
+      const int key = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+      const int r = (i >> 1) & 1;
+      const bool valid = key < T_len && (!causal || key <= row[r]);
+      const float p = valid ? exp2f(s[i] * scale_log2 - lse_r[r]) : 0.f;
+      s[i] = p * (dp[i] - delta_r[r]) * scale;
     }
 
-    // P = exp(S * scale - LSE) on the unmasked entries; dS = P (dP - Delta) scale
+    // dQ += dS K: dS (rounded to bf16) from registers, the same K tile read
+    // MN-major through the descriptor's transpose bit
+    uint32_t ads[kTile / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
+    for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const int i = e >> 1;
-        const bool valid = key < T_len && (!causal || key <= row[i]);
-        const float p = valid ? expf(s[nt][e] * scale - lse_r[i]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[i]) * scale;
-      }
+      for (int e = 0; e < 4; ++e) ads[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    wgmma_fence();
+    fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_rs_tb(acc, ads[kk], desc_sw128(sK + kk * 16 * kAtomRow, kAtomTile, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
 
-    // dQ += dS K: dS (rounded to bf16) is the A fragment; K is read
-    // transposed, two keys of one column at a time
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const bf16* pk = Ks + (kk * 16 + 2 * t4) * S + n * 8 + g;
-        mma_bf16(acc[n], a, ld_col2(pk, S), ld_col2(pk + 8 * S, S));
-      }
-    }
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && j + kStages < n_tiles) issue_kv(j + kStages);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = row[i];
+  for (int r = 0; r < 2; ++r) {
+    const int t = row[r];
     if (t >= T_len) continue;
     bf16* drow = dq + ((static_cast<long long>(b) * T_len + t) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(drow + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+          __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dkv: one warpgroup per block owns 64 keys; thread 0 also issues the
-// TMA loads.  K and V arrive once; Q, dO, LSE and Delta of each query tile
-// through a two-stage ring.
+// bf16 dkv: the block owns 64 keys.  K and V arrive once; Q, dO, LSE and
+// Delta of each query tile through the ring.
 // ---------------------------------------------------------------------------
-constexpr int kStages = 2;     // tile i in the products, tile i+1 in flight
-constexpr int kAtomRow = 128;  // bytes of one 64-column bf16 row: one swizzle atom
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int D>
 __host__ __device__ constexpr int dkv_q_rows() {
   // query rows per tile: at D=128 the dK and dV accumulators already take
   // 128 registers a thread, so S^T and dP^T get 16 each
   return D == 64 ? 64 : 32;
 }
-
-struct DkvMaps {
-  hopper::RowsMap q, k, v, dout;
-};
 
 template <int D>
 __host__ __device__ constexpr uint32_t dkv_stage_bytes() {
@@ -246,10 +270,9 @@ constexpr size_t dkv_bf16_smem() {
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_bf16_kernel(const __grid_constant__ DkvMaps maps, const float* __restrict__ lse,
+flash_dkv_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int H, int T_len, int causal, float scale) {
-  using namespace hopper;
   constexpr int kQ = dkv_q_rows<D>();
   constexpr int kAtoms = D / 64;
   constexpr uint32_t kKAtom = kTile * kAtomRow;  // bytes of one K or V atom tile
@@ -715,60 +738,75 @@ T* out(void* p) {
   return static_cast<T*>(p);
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, const Call& c, int threads, size_t smem, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// the f32 kernels: one block per (64-row tile, b*h)
+template <auto Kernel, typename... Args>
+int launch(const Call& c, size_t smem, Args... args) {
+  const cudaError_t err = allow_smem<Kernel>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((c.T_len + kTile - 1) / kTile, c.BH);
-  kernel<<<grid, threads, smem, c.stream>>>(args...);
+  Kernel<<<grid, kF32Threads, smem, c.stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 kernels' four tensor maps: Q and dO in boxes of q_rows rows, K
+// and V in boxes of kv_rows
+template <int D>
+cudaError_t make_maps(BwdMaps* m, const Call& c, int q_rows, int kv_rows) {
+  const int B = c.BH / c.H, T = c.T_len;
+  const Strides& st = c.st;
+  cudaError_t err = make_rows_map(&m->q, c.q, B, T, c.H, D, st.q[0], st.q[1], st.q[2], q_rows);
+  if (err == cudaSuccess)
+    err = make_rows_map(&m->dout, c.dout, B, T, c.H, D, st.o[0], st.o[1], st.o[2], q_rows);
+  if (err == cudaSuccess)
+    err = make_rows_map(&m->k, c.k, B, T, c.H, D, st.k[0], st.k[1], st.k[2], kv_rows);
+  if (err == cudaSuccess)
+    err = make_rows_map(&m->v, c.v, B, T, c.H, D, st.v[0], st.v[1], st.v[2], kv_rows);
+  return err;
 }
 
 template <int D>
 int dq_bf16(const Call& c) {
-  return launch(flash_dq_bf16_kernel<D>, c, kMmaThreads, dq_bf16_smem<D>(), in<bf16>(c.q),
-                in<bf16>(c.k), in<bf16>(c.v), in<bf16>(c.dout), in<float>(c.lse),
-                in<float>(c.delta), out<bf16>(c.out0), c.H, c.T_len, c.causal, c.scale, c.st);
+  BwdMaps maps;
+  cudaError_t err = make_maps<D>(&maps, c, kTile, kTile);
+  if (err == cudaSuccess)
+    err = allow_smem<flash_dq_bf16_kernel<D>>(static_cast<int>(dq_bf16_smem<D>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(c.BH, (c.T_len + kTile - 1) / kTile);
+  flash_dq_bf16_kernel<D><<<grid, kMmaThreads, dq_bf16_smem<D>(), c.stream>>>(
+      maps, in<float>(c.lse), in<float>(c.delta), out<bf16>(c.out0), c.H, c.T_len, c.causal,
+      c.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int dkv_bf16(const Call& c) {
-  const int B = c.BH / c.H, T = c.T_len;
-  DkvMaps maps;
-  const Strides& st = c.st;
-  cudaError_t err = hopper::make_rows_map(&maps.q, c.q, B, T, c.H, D, st.q[0], st.q[1], st.q[2],
-                                          dkv_q_rows<D>());
+  BwdMaps maps;
+  cudaError_t err = make_maps<D>(&maps, c, dkv_q_rows<D>(), kTile);
   if (err == cudaSuccess)
-    err = hopper::make_rows_map(&maps.dout, c.dout, B, T, c.H, D, st.o[0], st.o[1], st.o[2],
-                                dkv_q_rows<D>());
-  if (err == cudaSuccess)
-    err = hopper::make_rows_map(&maps.k, c.k, B, T, c.H, D, st.k[0], st.k[1], st.k[2], kTile);
-  if (err == cudaSuccess)
-    err = hopper::make_rows_map(&maps.v, c.v, B, T, c.H, D, st.v[0], st.v[1], st.v[2], kTile);
-  if (err == cudaSuccess)
-    err = hopper::allow_smem<flash_dkv_bf16_kernel<D>>(static_cast<int>(dkv_bf16_smem<D>()));
+    err = allow_smem<flash_dkv_bf16_kernel<D>>(static_cast<int>(dkv_bf16_smem<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(c.BH, (T + kTile - 1) / kTile);
+  const dim3 grid(c.BH, (c.T_len + kTile - 1) / kTile);
   flash_dkv_bf16_kernel<D><<<grid, kMmaThreads, dkv_bf16_smem<D>(), c.stream>>>(
-      maps, in<float>(c.lse), in<float>(c.delta), out<bf16>(c.out0), out<bf16>(c.out1), c.H, T,
-      c.causal, c.scale);
+      maps, in<float>(c.lse), in<float>(c.delta), out<bf16>(c.out0), out<bf16>(c.out1), c.H,
+      c.T_len, c.causal, c.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int dq_f32(const Call& c) {
-  return launch(flash_dq_f32_kernel<D>, c, kF32Threads, dq_f32_smem<D>(), in<float>(c.q),
-                in<float>(c.k), in<float>(c.v), in<float>(c.dout), in<float>(c.lse),
-                in<float>(c.delta), out<float>(c.out0), c.H, c.T_len, c.causal, c.scale, c.st);
+  return launch<flash_dq_f32_kernel<D>>(c, dq_f32_smem<D>(), in<float>(c.q), in<float>(c.k),
+                                        in<float>(c.v), in<float>(c.dout), in<float>(c.lse),
+                                        in<float>(c.delta), out<float>(c.out0), c.H, c.T_len,
+                                        c.causal, c.scale, c.st);
 }
 
 template <int D>
 int dkv_f32(const Call& c) {
-  return launch(flash_dkv_f32_kernel<D>, c, kF32Threads, dkv_f32_smem<D>(), in<float>(c.q),
-                in<float>(c.k), in<float>(c.v), in<float>(c.dout), in<float>(c.lse),
-                in<float>(c.delta), out<float>(c.out0), out<float>(c.out1), c.H, c.T_len,
-                c.causal, c.scale, c.st);
+  return launch<flash_dkv_f32_kernel<D>>(c, dkv_f32_smem<D>(), in<float>(c.q), in<float>(c.k),
+                                         in<float>(c.v), in<float>(c.dout), in<float>(c.lse),
+                                         in<float>(c.delta), out<float>(c.out0),
+                                         out<float>(c.out1), c.H, c.T_len, c.causal, c.scale,
+                                         c.st);
 }
 
 }  // namespace

@@ -50,11 +50,10 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace hopper;
 
 constexpr int kBlockM = 64;  // query rows per block (the wgmma M in bf16)
 constexpr int kBlockN = 64;  // keys per K/V tile
@@ -93,7 +92,6 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int H, int T_len, int causal, float scale_log2) {
-  using namespace hopper;
   constexpr int kAtoms = D / 64;
   constexpr uint32_t kQAtom = kBlockM * kAtomRow;  // bytes of one Q atom tile
   constexpr uint32_t kKVAtom = kBlockN * kAtomRow;  // bytes of one K or V atom tile
@@ -406,9 +404,7 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                int T_len, int causal, float scale, const long long* st, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = hopper::allow_smem<flash_fwd_f32_kernel<D>>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T_len + kBlockM - 1) / kBlockM, B * H);
   flash_fwd_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(

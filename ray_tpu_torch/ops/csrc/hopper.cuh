@@ -11,10 +11,16 @@
 // mask those keys themselves, since a zero key scores 0, not -inf.
 //
 // wgmma fragments.  The f32 accumulator of wgmma m64nNk16 holds, in warp w
-// of the warpgroup, rows 16w..16w+15 in the m16n8 C layout of
-// mma_bf16.cuh for each 8-column chunk j: d[4j..4j+3].  A register A
-// operand (16 rows x 16 k per warp) has the m16n8k16 A layout, so pack_a
-// of chunks 2k and 2k+1 is the A operand of k-step k.
+// of the warpgroup, rows 16w..16w+15; lane (g = lane / 4, t = lane % 4)
+// holds, for each 8-column chunk j:
+//   d[4j], d[4j+1]     = (row g,     cols 8j + 2t, 8j + 2t + 1)
+//   d[4j+2], d[4j+3]   = (row g + 8, cols 8j + 2t, 8j + 2t + 1)
+// A register A operand (16 rows x 16 k per warp) wants
+//   a[0] = (row g, k 2t, 2t+1)      a[1] = (row g + 8, k 2t, 2t+1)
+//   a[2] = (row g, k 2t+8, 2t+9)    a[3] = (row g + 8, k 2t+8, 2t+9)
+// so chunks 2k and 2k+1 of an accumulator, packed two floats to a bf16
+// pair in order (a[e] = pack_bf16(d[8k + 2e], d[8k + 2e + 1])), are the A
+// operand of k-step k of the next product: nothing moves between threads.
 //
 // Descriptors (128-byte swizzle; addresses, LBO and SBO in bytes):
 //   K-major tile [rows][64] (the contiguous dimension is the product's K):
@@ -27,12 +33,15 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the driver entry is looked up at run time
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
 namespace hopper {
+
+constexpr float kNegInf = -1e30f;  // the reference's mask value
 
 // A [B, T, H, D] bf16 tensor as a TMA map of [rows x 64] boxes.  The three
 // outer dimensions are ordered by stride; `order` says which is which.
@@ -46,6 +55,12 @@ struct RowsMap {
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two floats rounded to a bf16 pair, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

@@ -101,11 +101,11 @@ def test_flash_attention_function_on_card(dtype):
     assert _rel_err(gx.cpu(), ref_gx) <= BWD_TOL[dtype]
 
 
-# The bf16 forward (B1) and dkv (B3) kernels load their tiles by TMA, which
-# fills rows past T with zeros, in tiles of 64 keys (B1 and B3 at D=64 and
-# 128), 64 queries (B1; B3 at D=64) and 32 queries (B3 at D=128): T on both
-# sides of the first and second tile edges, B=2 with q/k/v strided views of
-# one fused projection, both head dims, causal and not.
+# The bf16 kernels load their tiles by TMA, which fills rows past T with
+# zeros, in tiles of 64 keys (B1, B2 and B3 at D=64 and 128), 64 queries
+# (B1 and B2; B3 at D=64) and 32 queries (B3 at D=128): T on both sides of
+# the first and second tile edges, B=2 with q/k/v strided views of one
+# fused projection, both head dims, causal and not.
 EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 1000]
 
 
@@ -139,10 +139,10 @@ def test_flash_fwd_bf16_tile_edges_on_card(T, D, causal):
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("T", EDGE_TS)
 def test_flash_bwd_bf16_tile_edges_on_card(T, D, causal):
-    """B3 (and B2 beside it) in bf16 against their plain versions at the
-    tile edges, 1e-2 of each gradient's largest entry.  At T=1 the softmax
-    over one key is constant, so dQ and dK are zero but for rounding: there
-    they are held within 1e-2 of the largest dV entry instead."""
+    """B2 and B3 in bf16 against their plain versions at the tile edges,
+    1e-2 of each gradient's largest entry.  At T=1 the softmax over one key
+    is constant, so dQ and dK are zero but for rounding: there they are
+    held within 1e-2 of the largest dV entry instead."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
     q, k, v, do = _fused_qkv(2, T, D, seed=1000 + T * 4 + D + causal)
@@ -163,7 +163,7 @@ def test_flash_bwd_bf16_tile_edges_on_card(T, D, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [65, 1000])
 def test_flash_bf16_head_major_views_on_card(T):
-    """B1 and B3 on q/k/v/dO that are [B, H, T, D] tensors seen as
+    """B1, B2 and B3 on q/k/v/dO that are [B, H, T, D] tensors seen as
     [B, T, H, D] (the head stride above the time stride): the tensor maps
     order the outer dimensions by stride, so the kernels read these views
     without a copy.  Tolerances as above."""
@@ -181,3 +181,19 @@ def test_flash_bf16_head_major_views_on_card(T):
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert _rel_err(a, b) <= BWD_TOL["bfloat16"], name
+
+
+@pytest.mark.cuda
+def test_flash_dq_bf16_is_deterministic_on_card():
+    """B2 sums each dQ row over the key tiles in a fixed order, with no
+    atomics: two calls on the same bf16 inputs give bitwise equal dQ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    q, k, v, do = _fused_qkv(2, 1000, 64, seed=5)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v)
+    delta = fa._delta(o, do)
+    first = fa.flash_attention_dq(q, k, v, do, lse, delta)
+    second = fa.flash_attention_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(first.float()).all())
+    assert torch.equal(first, second)
