@@ -22,6 +22,12 @@ and prints no result line):
                   back-to-back calls of each wrapper at [1, 64, 12, 64],
                   bf16 (which encodes TMA tensor maps) and f32 (which
                   does not), beside the kernels' device time there.
+   llama kernels — B1, B2 and B3 at Llama-1B's attention (head dim 128, k
+                  and v of 8 KV heads repeated to 16): held against their
+                  plain versions at the training path's [4, 4096, 16, 128]
+                  bf16 causal (B1's O row by row, with a planted fault to
+                  show the check's power), then timed there beside their
+                  plain versions, bounds and the library's attention.
 5. parity       — GPT-2 small at full width in float32: the engine's greedy
                   tokens equal the full-forward generate_greedy oracle's.
 6. serve        — the serving path: GPT-2 small in bfloat16 serving 16
@@ -41,6 +47,22 @@ and prints no result line):
                   one remat step (B1 twice a layer, the same loss); step
                   time, tokens/s, MFU, and the device's idle share and time
                   by kernel under torch.profiler.
+10. llama parity — one float32 AdamW step at Llama-1B's full width and 2
+                  of its layers (B=1, T=256) on the card and on the CPU.
+11. llama train — the main path of the model families: Llama-1B at full
+                  width and depth, f32 params, bf16 compute, remat, B=4,
+                  T=4096, AdamW; 3 warm-up and 10 timed steps with a
+                  finite, falling loss and B1 32, B2 16, B3 16 launches a
+                  step; step time, tokens/s, MFU, peak memory, and one
+                  step under torch.profiler.
+12. resnet      — one float32 SGD-momentum step at resnet18's widths card
+                  vs CPU (loss, gradients, parameters, new running
+                  statistics); ResNet-50 at bench_resnet.py's configuration
+                  (bf16, B=512, 32x32, SGD 0.1 momentum 0.9), 13 steps.
+13. vit, mlp    — each at its default config: an f32 AdamW step card vs
+                  CPU, then 13 bf16 steps with a falling loss.
+14. moe         — MoEMLP at its default widths in float32: output, aux loss
+                  and gradients, card vs CPU.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -50,6 +72,7 @@ from __future__ import annotations
 
 import asyncio
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -60,7 +83,7 @@ import time
 import numpy as np
 import torch
 
-from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.models import gpt2, llama, mlp, moe, resnet, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine
@@ -304,52 +327,100 @@ def phase_bwd_kernels(card: str) -> list:
             raise AssertionError(f"flash backward disagrees with its plain version at T={T} {dt}")
 
     # the training shape: q/k/v views of the fused projection, dO
-    # contiguous (as autograd hands it over), O and LSE from B1.  All three
-    # kernels are held against their plain versions here first, B1 at
-    # phase_kernels' bf16 tolerances and B2/B3 at the 1e-2 above; these are
-    # the errors the records carry.
+    # contiguous (as autograd hands it over), O and LSE from B1
     B, T, H, D = TRAIN_B, TRAIN_T, 12, 64
     g = torch.Generator(device="cuda").manual_seed(300)
     qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
     do = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    errs = _hold_bf16_kernels("bwd kernels", "training shape", "fused", q, k, v, do)
+    return _time_bf16_kernels("bwd kernels", "train", q, k, v, do, errs, card)
+
+
+def _row_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max over rows (all but the last dim) of max |got - ref| over that
+    row's max |ref|."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+
+# B1's O held row by row: each row of O is a convex mix of V's rows, whose
+# size falls as 1/sqrt(keys) along a causal T (late rows' entries are ~0.02
+# at T=4096), so an absolute limit that covers the early rows' rounding
+# hides a fault in the late ones.  Both sides round O once to bf16 (one ulp
+# is at most 2^-7 of the row's largest entry) after the kernel's P rounding
+# (2^-9 relative per probability, averaging out over the keys): 2e-2 of
+# each row's largest entry
+O_ROW_TOL = 2e-2
+
+
+def _hold_bf16_kernels(tag: str, label: str, layout: str, q, k, v, do) -> dict:
+    """B1, B2 and B3 in bf16 causal on these inputs against their plain
+    versions: B1 at phase_kernels' bf16 tolerances (2e-2 on O, 1e-3 on the
+    LSE) and O at O_ROW_TOL of each row's largest entry, B2/B3 at
+    phase_bwd_kernels' 1e-2 of each gradient's largest entry.  The row
+    check's power is shown on a planted fault: the plain version with one
+    64-key V tile zeroed (keys T-128..T-65), which leaves the LSE exact and
+    moves only the last 128 rows, must read above O_ROW_TOL.  Raises on a
+    disagreement, else returns the errors that the records carry."""
+    shape = tuple(q.shape)
     o, lse = fa.flash_attention_fwd(q, k, v)
     ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
     fwd_err = (o.float() - ref_o.float()).abs().max().item()
+    row_err = _row_rel(o, ref_o)
     lse_err = (lse - ref_lse).abs().max().item()
-    del ref_o, ref_lse
+    v_fault = v.clone()
+    v_fault[:, -128:-64] = 0
+    fault_err = _row_rel(fa.flash_attention_fwd_reference(q, k, v_fault)[0], ref_o)
+    del ref_o, ref_lse, v_fault
     got = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
     errs = dict(zip(("dq", "dk", "dv"), (_rel(a, b) for a, b in zip(got, ref))))
     finite = all(bool(torch.isfinite(a.float()).all()) for a in (o, lse, *got))
     del got, ref
-    ok = (finite and fwd_err <= 2e-2 and lse_err <= 1e-3
-          and all(rel <= tol[torch.bfloat16] for _, rel in errs.values()))
-    print(f"[bwd kernels] training shape {(B, T, H, D)} bfloat16 causal fused: flash_fwd "
-          f"max|dO|={fwd_err:.3e} (tol 0.02) max|dLSE|={lse_err:.3e} (tol 0.001); "
-          f"max|err|/max|ref| dq {errs['dq'][1]:.3e} dk {errs['dk'][1]:.3e} dv "
-          f"{errs['dv'][1]:.3e} (tol {tol[torch.bfloat16]:g}) {'ok' if ok else 'FAIL'}",
-          flush=True)
+    ok = (finite and fwd_err <= 2e-2 and row_err <= O_ROW_TOL and lse_err <= 1e-3
+          and all(rel <= 1e-2 for _, rel in errs.values()))
+    print(f"[{tag}] {label} {shape} bfloat16 causal {layout}: flash_fwd "
+          f"max|dO|={fwd_err:.3e} (tol 0.02), by row {row_err:.3e} of max|O_ref| (tol "
+          f"{O_ROW_TOL:g}; one V tile zeroed reads {fault_err:.3e}) max|dLSE|={lse_err:.3e} "
+          f"(tol 0.001); max|err|/max|ref| dq {errs['dq'][1]:.3e} dk {errs['dk'][1]:.3e} dv "
+          f"{errs['dv'][1]:.3e} (tol 0.01) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"flash kernels disagree with their plain versions at the "
-                             f"training shape {(B, T, H, D)}")
+                             f"{label} {shape}")
+    if fault_err <= O_ROW_TOL:
+        raise AssertionError(f"B1's row check at the {label} {shape} cannot see a zeroed "
+                             f"V tile ({fault_err:.3e} <= {O_ROW_TOL:g})")
+    return {"fwd": fwd_err, "fwd_row": row_err, "fwd_fault_row": fault_err, "lse": lse_err,
+            **errs}
+
+
+def _time_bf16_kernels(tag: str, path: str, q, k, v, do, errs: dict, card: str,
+                       plain_reps: int = 3) -> list:
+    """B1, B2 and B3 timed on these inputs beside their plain versions,
+    their bounds and the library's attention on the same q, k, v
+    (``scaled_dot_product_attention``'s forward for B1, its backward for
+    B2 and B3); returns the three records with ``errs`` from
+    ``_hold_bf16_kernels``."""
+    o, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa._delta(o, do)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    shape = (B, T, H, D)
+    shape = tuple(q.shape)
     fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
-    fwd_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v), reps=3, rounds=3)
+    fwd_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v), reps=plain_reps,
+                         rounds=3)
     with torch.no_grad():
         fwd_lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
     dq_ms = _time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta))
     dq_plain = _time_ms(lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta),
-                        reps=3, rounds=3)
+                        reps=plain_reps, rounds=3)
     dkv_ms = _time_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta))
     dkv_plain = _time_ms(lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta),
-                         reps=3, rounds=3)
+                         reps=plain_reps, rounds=3)
     bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
     delta_ms = _time_ms(lambda: fa._delta(o, do))
     # the library computes dq, dk and dv in one backward call
@@ -359,17 +430,18 @@ def phase_bwd_kernels(card: str) -> list:
                                 "one call", "flash_attention_bwd_ms": bwd_ms,
                 "delta_ms": delta_ms}
     recs = [
-        _record("flash_attention_fwd", "train", shape, fwd_ms, fwd_plain, fwd_lib,
-                *_fwd_work(*shape), fwd_err, max_abs_err_lse=lse_err),
-        _record("flash_attention_dq", "train", shape, dq_ms, dq_plain, bwd_lib,
+        _record("flash_attention_fwd", path, shape, fwd_ms, fwd_plain, fwd_lib,
+                *_fwd_work(*shape), errs["fwd"], max_abs_err_lse=errs["lse"],
+                max_row_rel_err=errs["fwd_row"], planted_fault_row_rel_err=errs["fwd_fault_row"]),
+        _record("flash_attention_dq", path, shape, dq_ms, dq_plain, bwd_lib,
                 *_dq_work(*shape), errs["dq"][0], max_rel_err=errs["dq"][1], **lib_note),
-        _record("flash_attention_dkv", "train", shape, dkv_ms, dkv_plain, bwd_lib,
+        _record("flash_attention_dkv", path, shape, dkv_ms, dkv_plain, bwd_lib,
                 *_dkv_work(*shape), max(errs["dk"][0], errs["dv"][0]),
                 max_rel_err=max(errs["dk"][1], errs["dv"][1]), **lib_note),
     ]
     for rec in recs:
-        _print_record("bwd kernels", rec, card)
-    print(f"[bwd kernels] backward at {shape}: Delta + dq + dkv {bwd_ms:.4f} ms (Delta alone, "
+        _print_record(tag, rec, card)
+    print(f"[{tag}] backward at {shape}: Delta + dq + dkv {bwd_ms:.4f} ms (Delta alone, "
           f"in torch, {delta_ms:.4f} ms), library backward {bwd_lib:.4f} ms — {card}",
           flush=True)
     return recs
@@ -627,12 +699,107 @@ def phase_profile(card: str) -> dict:
     return res
 
 
-def _train_batch(B: int, T: int, seed: int, device):
+def _train_batch(B: int, T: int, seed: int, device, vocab: int = PROMPT_VOCAB):
     """Tokens over the tokenizer's range from a seed, and their next-token
     targets."""
-    toks = np.random.default_rng(seed).integers(0, PROMPT_VOCAB, size=(B, T + 1))
+    toks = np.random.default_rng(seed).integers(0, vocab, size=(B, T + 1))
     toks = torch.from_numpy(toks).to(device)
     return toks[:, :-1], toks[:, 1:]
+
+
+# A tensor whose largest CPU gradient entry is below this share of the
+# model's largest has an exact gradient of zero and holds only rounding
+# noise: an attention key bias (the softmax ignores a shift of all of a
+# query's scores), or a ResNet branch behind a zero-initialised BatchNorm
+# scale.  The ViT's key biases read 3.8e-10 to 4.6e-9 of the model's
+# largest on the CPU, its next smallest tensor (a query bias) 1.9e-3.
+ZERO_GRAD_SHARE = 1e-6
+
+
+def _step_errors(card_model, cpu_model, grads: dict):
+    """After one step from the same weights on the card and on the CPU:
+    (max over tensors of max |g_card - g_cpu| / max |g_cpu|, max |p_card -
+    p_cpu| over all entries, the same over the entries whose CPU gradient
+    is at least 1e-2 of their tensor's largest, and {name: (max |g_card -
+    g_cpu|, max |g_cpu|) over the model's largest CPU gradient entry} for
+    the tensors at rounding level (ZERO_GRAD_SHARE)).  Noise agrees to no
+    relative tolerance and AdamW follows its sign, so those tensors are
+    held apart: none of their entries counts in the first and third
+    numbers, and the caller holds the card's gradient there to rounding
+    level too."""
+    worst_g, worst_p, worst_p_sure = 0.0, 0.0, 0.0
+    gtop = max(g.abs().max().item() for g in grads["cpu"].values())
+    zero = {}
+    params_cpu = dict(cpu_model.named_parameters())
+    for n, p in card_model.named_parameters():
+        gc, gr = grads["cuda"][n], grads["cpu"][n]
+        gmax = gr.abs().max().item()
+        diff = (p.detach().cpu() - params_cpu[n].detach()).abs()
+        worst_p = max(worst_p, diff.max().item())
+        if gmax < ZERO_GRAD_SHARE * gtop:
+            zero[n] = ((gc - gr).abs().max().item() / gtop, gmax / gtop)
+            continue
+        worst_g = max(worst_g, (gc - gr).abs().max().item() / gmax)
+        sure = gr.abs() >= 1e-2 * gmax
+        if sure.any():
+            worst_p_sure = max(worst_p_sure, diff[sure].max().item())
+    return worst_g, worst_p, worst_p_sure, zero
+
+
+def _zero_grads_ok(zero: dict) -> bool:
+    return all(err <= ZERO_GRAD_SHARE for err, _ in zero.values())
+
+
+def _fmt_zero(zero: dict) -> str:
+    """The tensors at rounding level, for the phases' lines."""
+    if not zero:
+        return "no tensor at rounding level"
+    return (f"{len(zero)} tensor(s) at rounding level (exact gradient zero, e.g. "
+            f"{next(iter(zero))}): max|g_cpu| {max(g for _, g in zero.values()):.2e}, "
+            f"max|g_card - g_cpu| {max(e for e, _ in zero.values()):.2e} of the model's "
+            f"max|g| (tol {ZERO_GRAD_SHARE:g})")
+
+
+def _adamw_step_parity(tag: str, label: str, cpu_model, make_step, batch, lr: float,
+                       card: str, fwd_launches: int = None) -> dict:
+    """One float32 AdamW step from the same weights on the card (copied
+    from ``cpu_model``) and on the CPU, ``make_step(model)`` giving each its
+    step: the loss, every gradient and every parameter after it.  With
+    ``fwd_launches``, the card's step must launch B1 that many times.
+
+    f32 on both sides, sums in other orders (cuBLAS, cuDNN and the kernels
+    against the CPU's libraries and the plain versions): the loss to 1e-4
+    relative, each gradient to 1e-3 of its largest entry; a tensor at
+    rounding level (``_step_errors``) to ZERO_GRAD_SHARE of the model's
+    largest.  After the step, AdamW's update is close to lr * g / |g|:
+    entries whose gradient is at least 1e-2 of its tensor's largest agree
+    to 1e-2 lr, the rest (gradients within float noise of zero) within 2
+    lr."""
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    losses, grads = {}, {}
+    for name, model in (("cuda", card_model), ("cpu", cpu_model)):
+        step = make_step(model)
+        launches = fa.flash_attention_fwd.launches
+        losses[name] = step(model, *(t.to(name) for t in batch)).item()
+        if (name == "cuda" and fwd_launches is not None
+                and fa.flash_attention_fwd.launches - launches != fwd_launches):
+            raise AssertionError(f"the card's {label} parity step did not run the flash kernels")
+        grads[name] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    worst_g, worst_p, worst_p_sure, zero = _step_errors(card_model, cpu_model, grads)
+    ok = (loss_err <= 1e-4 and worst_g <= 1e-3 and _zero_grads_ok(zero)
+          and worst_p_sure <= 1e-2 * lr and worst_p <= 2 * lr and math.isfinite(losses["cuda"]))
+    res = {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"], "loss_rel_err": loss_err,
+           "grad_err_over_max": worst_g, "zero_grad_tensors": zero, "param_err": worst_p,
+           "param_err_sure": worst_p_sure, "lr": lr}
+    print(f"[{tag}] {label}, one AdamW step, card vs CPU: loss "
+          f"{losses['cuda']:.6f} vs {losses['cpu']:.6f} (rel {loss_err:.2e}, tol 1e-4); "
+          f"grads max|err|/max|g| {worst_g:.2e} (tol 1e-3); {_fmt_zero(zero)}; params "
+          f"{worst_p_sure:.2e} where |g| >= 1e-2 max|g| (tol {1e-2 * lr:g}), {worst_p:.2e} "
+          f"overall (tol {2 * lr:g}) {'ok' if ok else 'FAIL'} — {card}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} training parity failed: {res}")
+    return res
 
 
 def phase_train_parity(card: str) -> dict:
@@ -641,48 +808,10 @@ def phase_train_parity(card: str) -> dict:
     versions): the loss, every gradient and every parameter after it."""
     cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
     cpu = gpt2.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    card_model = copy.deepcopy(cpu).to("cuda")
-    lr = TRAIN_LR
-    losses, grads = {}, {}
-    for name, model in (("cuda", card_model), ("cpu", cpu)):
-        tokens, targets = _train_batch(2, 128, seed=3, device=name)
-        step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr))
-        launches = fa.flash_attention_fwd.launches
-        losses[name] = step(model, tokens, targets).item()
-        if name == "cuda" and fa.flash_attention_fwd.launches - launches != cfg.n_layer:
-            raise AssertionError("the card's parity step did not run the flash kernels")
-        grads[name] = {n: p.grad.cpu() for n, p in model.named_parameters()}
-    # f32 on both sides, sums in other orders (cuBLAS and the kernels
-    # against MKL and the plain versions), through 12 layers: the loss to
-    # 1e-4 relative, each gradient to 1e-3 of its largest entry.  After
-    # the step, AdamW's update is close to lr * g / |g|: entries whose
-    # gradient is at least 1e-2 of its tensor's largest agree to 1e-2 lr,
-    # the rest (gradients within float noise of zero) within 2 lr.
-    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    worst_g, worst_p, worst_p_sure = 0.0, 0.0, 0.0
-    params_cpu = dict(cpu.named_parameters())
-    for n, p in card_model.named_parameters():
-        gc, gr = grads["cuda"][n], grads["cpu"][n]
-        gmax = gr.abs().max().item()
-        worst_g = max(worst_g, (gc - gr).abs().max().item() / max(gmax, 1e-30))
-        diff = (p.detach().cpu() - params_cpu[n].detach()).abs()
-        worst_p = max(worst_p, diff.max().item())
-        sure = gr.abs() >= 1e-2 * gmax
-        if sure.any():
-            worst_p_sure = max(worst_p_sure, diff[sure].max().item())
-    ok = (loss_err <= 1e-4 and worst_g <= 1e-3 and worst_p_sure <= 1e-2 * lr
-          and worst_p <= 2 * lr and math.isfinite(losses["cuda"]))
-    res = {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"], "loss_rel_err": loss_err,
-           "grad_err_over_max": worst_g, "param_err": worst_p, "param_err_sure": worst_p_sure,
-           "lr": lr}
-    print(f"[train parity] GPT-2 small f32 B=2 T=128, one AdamW step, card vs CPU: loss "
-          f"{losses['cuda']:.6f} vs {losses['cpu']:.6f} (rel {loss_err:.2e}, tol 1e-4); "
-          f"grads max|err|/max|g| {worst_g:.2e} (tol 1e-3); params {worst_p_sure:.2e} where "
-          f"|g| >= 1e-2 max|g| (tol {1e-2 * lr:g}), {worst_p:.2e} overall (tol {2 * lr:g}) "
-          f"{'ok' if ok else 'FAIL'} — {card}", flush=True)
-    if not ok:
-        raise AssertionError(f"training parity failed: {res}")
-    return res
+    return _adamw_step_parity(
+        "train parity", "GPT-2 small f32 B=2 T=128", cpu,
+        lambda m: gpt2.make_train_step(cfg, gpt2.make_adamw(m.parameters(), TRAIN_LR)),
+        _train_batch(2, 128, seed=3, device="cpu"), TRAIN_LR, card, fwd_launches=cfg.n_layer)
 
 
 def _launch_counts():
@@ -700,8 +829,6 @@ def phase_train(card: str) -> dict:
     """The training path, driven through make_train_step with the launch
     counts set to 0 just before and read just after; then one remat step,
     and a profiled window."""
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
     model = gpt2.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr=TRAIN_LR))
@@ -710,17 +837,8 @@ def phase_train(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     _reset_counts()
-    losses = [step(model, tokens, targets) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [step(model, tokens, targets) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    losses, wall = _run_steps("training", step, model, (tokens, targets))
     launches = _launch_counts()
-
-    losses = [x.item() for x in losses]
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss not finite and falling: {losses}")
     want = (cfg.n_layer * n_steps,) * 3
     if launches != want:
         raise AssertionError(f"launches (B1, B2, B3) {launches} over {n_steps} steps, "
@@ -755,19 +873,8 @@ def phase_train(card: str) -> dict:
         raise AssertionError(f"remat loss {loss_remat} != plain loss {loss_plain}")
 
     # where the time goes: two steps under torch.profiler
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        for _ in range(2):
-            step(model, tokens, targets)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    kernels = _device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
-    flash = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / 2
-             for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
-                          "flash_dkv_bf16_kernel")}
+    prof = _profile_step(lambda: step(model, tokens, targets), steps=2)
+    flash = prof["flash_ms_per_step"]
     res = {
         "config": "GPT-2 small, float32 params, bfloat16 compute, remat=False, "
                   f"B={TRAIN_B}, T={TRAIN_T}, AdamW lr {TRAIN_LR}",
@@ -782,12 +889,7 @@ def phase_train(card: str) -> dict:
         "remat_launches": list(remat_launches),
         "loss_remat": loss_remat,
         "loss_plain": loss_plain,
-        "profiled_step_ms": prof_wall / 2 * 1e3,
-        "device_busy_ms_per_step": busy_ms / 2,
-        "device_idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
-        "flash_ms_per_step": flash,
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "ms_per_step": e.self_device_time_total / 1e3 / 2} for e in top[:12]],
+        **prof,
         "card": card,
     }
     print(f"[train] GPT-2 small bf16 compute / f32 params, B={TRAIN_B} T={TRAIN_T}: loss "
@@ -809,12 +911,385 @@ def phase_train(card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# Llama-1B: the kernels at head dim 128 behind the GQA repeat, an f32 step
+# at full width against the CPU, and the training path
+# ----------------------------------------------------------------------
+LLAMA_B, LLAMA_T = 4, 4096  # llama_1b's max_seq_len: 16,384 tokens a step
+LLAMA_VOCAB = 32000
+
+
+def _gqa_inputs(B: int, T: int, seed: int):
+    """Llama-1B's attention inputs on the card in bf16: q [B, T, 16, 128],
+    k and v drawn for its 8 KV heads and repeated to 16 as LlamaAttention
+    repeats them (contiguous), and dO [B, T, 16, 128]."""
+    cfg = llama.LlamaConfig.llama_1b()
+    rep = cfg.n_head // cfg.n_kv_head
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(heads):
+        return torch.randn(B, T, heads, cfg.d_head, generator=g, device="cuda").to(torch.bfloat16)
+
+    q = draw(cfg.n_head)
+    k, v = (torch.repeat_interleave(draw(cfg.n_kv_head), rep, dim=2) for _ in range(2))
+    return q, k, v, draw(cfg.n_head)
+
+
+def phase_llama_kernels(card: str) -> list:
+    """B1, B2 and B3 at Llama-1B's attention, the training path's [4, 4096,
+    16, 128]: held against their plain versions (the tolerances of the
+    training shape, relative for the gradients, since their scale grows
+    with T), then timed there; returns the records (launches are filled in
+    by the training phase)."""
+    q, k, v, do = _gqa_inputs(LLAMA_B, LLAMA_T, seed=501)
+    errs = _hold_bf16_kernels("llama kernels", "Llama-1B attention", "GQA-repeated k/v",
+                              q, k, v, do)
+    torch.cuda.empty_cache()
+    recs = _time_bf16_kernels("llama kernels", "llama_train", q, k, v, do, errs, card,
+                              plain_reps=1)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_llama_parity(card: str) -> dict:
+    """One float32 AdamW step at Llama-1B's full width (d_model 2048, 16
+    heads over 8 KV heads, d_ff 5504, vocab 32000) and 2 of its layers,
+    B=1, T=256, on the card (the kernels at D=128) and on the CPU."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama_1b(dtype=torch.float32), n_layer=2,
+                              remat=False)
+    cpu = llama.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return _adamw_step_parity(
+        "llama parity", "Llama-1B widths x 2 layers f32 B=1 T=256", cpu,
+        lambda m: llama.make_train_step(cfg, gpt2.make_adamw(m.parameters(), TRAIN_LR)),
+        _train_batch(1, 256, seed=6, device="cpu", vocab=LLAMA_VOCAB), TRAIN_LR, card,
+        fwd_launches=cfg.n_layer)
+
+
+def _llama_flops_per_token(cfg, n_params: int, T: int) -> float:
+    """Model FLOPs a token of a training step (no remat recompute): 6 per
+    weight outside the embedding, and 6 T d_model a layer for causal
+    attention (QK^T and PV over T/2 keys on average, forward and
+    backward)."""
+    return 6.0 * (n_params - cfg.vocab_size * cfg.d_model) + 6.0 * cfg.n_layer * T * cfg.d_model
+
+
+def _kind(kernel: str) -> str:
+    """A device kernel's kind by its name: the port's flash kernels, the
+    cuBLAS/cuDNN products, torch's elementwise kernels and copies, its
+    reductions, or other."""
+    if "flash_" in kernel:
+        return "flash"
+    if any(w in kernel for w in ("nvjet", "gemm", "cutlass", "sm90_", "conv", "wgrad",
+                                 "dgrad", "fprop", "xmma", "cudnn")):
+        return "matmul/conv"
+    if "elementwise" in kernel or "copy" in kernel:
+        return "elementwise"
+    if "reduce" in kernel or "norm" in kernel.lower():
+        return "reduction"
+    return "other"
+
+
+def _fmt_ms(by_kind: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in by_kind.items())
+
+
+def _profile_step(run, steps: int = 1) -> dict:
+    """``steps`` calls of ``run`` (a training step) under torch.profiler:
+    a step's wall time to a synchronize, the device's busy time a step and
+    idle share, device time a step by kind and by kernel (``count`` over
+    all the steps), and the flash kernels' time a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / steps
+    kernels = _device_kernels(prof)
+
+    def ms(events):  # device time a step
+        return sum(e.self_device_time_total for e in events) / 1e3 / steps
+
+    busy_ms = ms(kernels)
+    by_kind = {}
+    for e in kernels:
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + ms([e])
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    return {
+        "profiled_step_ms": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "flash_ms_per_step": {
+            name: ms([e for e in kernels if name in e.key])
+            for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+                         "flash_dkv_bf16_kernel")},
+        "top_kernels": [{"name": e.key[:80], "count": e.count, "ms_per_step": ms([e])}
+                        for e in top[:15]],
+    }
+
+
+def phase_llama_train(card: str) -> dict:
+    """The main path: Llama-1B at full width and depth, float32 params
+    with bfloat16 compute and remat (the reference's defaults), B=4,
+    T=4096, AdamW at bench.py's hyperparameters, driven through
+    make_train_step with the launch counts set to 0 just before and read
+    just after (B1 twice a layer, B2 and B3 once); then one step under
+    torch.profiler."""
+    cfg = llama.LlamaConfig.llama_1b()
+    model = llama.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = llama.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr=TRAIN_LR))
+    tokens, targets = _train_batch(LLAMA_B, LLAMA_T, seed=7, device="cuda", vocab=LLAMA_VOCAB)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_counts()
+    losses, wall = _run_steps("Llama training", step, model, (tokens, targets))
+    launches = _launch_counts()
+    L = cfg.n_layer
+    want = (2 * L * n_steps, L * n_steps, L * n_steps)
+    if launches != want:
+        raise AssertionError(f"Llama launches (B1, B2, B3) {launches} over {n_steps} steps, "
+                             f"expected {want}: B1 twice a layer (remat), B2 and B3 once")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = LLAMA_B * LLAMA_T * TRAIN_STEPS / wall
+    n_params = llama.num_params(model)
+    flops_tok = _llama_flops_per_token(cfg, n_params, LLAMA_T)
+    mfu = tok_s * flops_tok / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    prof = _profile_step(lambda: step(model, tokens, targets))
+    flash = prof["flash_ms_per_step"]
+    res = {
+        "config": f"Llama-1B (16 layers, d_model 2048, 16 heads over 8 KV heads, d_ff 5504, "
+                  f"vocab 32000), float32 params, bfloat16 compute, remat=True, B={LLAMA_B}, "
+                  f"T={LLAMA_T}, AdamW lr {TRAIN_LR}",
+        "params": n_params,
+        "losses": losses,
+        "step_ms": step_ms,
+        "tokens_per_s": tok_s,
+        "flops_per_token": flops_tok,
+        "mfu": mfu,
+        "peak_memory_gb": peak_gb,
+        "launches": {"flash_attention_fwd": launches[0], "flash_attention_dq": launches[1],
+                     "flash_attention_dkv": launches[2], "steps": n_steps},
+        **prof,
+        "card": card,
+    }
+    print(f"[llama train] Llama-1B bf16 compute / f32 params, remat, B={LLAMA_B} T={LLAMA_T} "
+          f"({n_params} params): loss {losses[0]:.4f} -> {losses[-1]:.4f} over {n_steps} "
+          f"steps; step {step_ms:.2f} ms (mean of {TRAIN_STEPS} timed steps), {tok_s:.0f} "
+          f"tok/s, MFU {mfu:.4f} at {flops_tok / 1e9:.4f} GFLOP/token; peak memory "
+          f"{peak_gb:.2f} GB; launches B1/B2/B3 {launches} = ({2 * L}, {L}, {L}) x {n_steps} "
+          f"— {card}", flush=True)
+    print(f"[llama train] profiled step: {res['profiled_step_ms']:.2f} ms, device busy "
+          f"{res['device_busy_ms_per_step']:.2f} ms, idle share {res['device_idle_share']:.4f}; "
+          f"by kind {_fmt_ms(res['device_ms_by_kind'])}; flash per step: fwd "
+          f"{flash['flash_fwd_bf16_kernel']:.3f} ms, dq {flash['flash_dq_bf16_kernel']:.3f} ms, "
+          f"dkv {flash['flash_dkv_bf16_kernel']:.3f} ms — {card}", flush=True)
+    for k in res["top_kernels"]:
+        print(f"[llama train]   {k['ms_per_step']:9.3f} ms/step  x{k['count']:5d}  {k['name']}",
+              flush=True)
+    print("[llama train] " + json.dumps(res), flush=True)
+    return res
+
+
+# ----------------------------------------------------------------------
+# Vision and small models: ResNet, ViT, MLP, MoE (cuDNN, cuBLAS and torch
+# ops; no kernel of the port runs here)
+# ----------------------------------------------------------------------
+RESNET_B, RESNET_LR = 512, 0.1  # bench_resnet.py's batch and SGD(0.1, momentum 0.9)
+
+
+def _class_images(B: int, shape: tuple, seed: int, device):
+    """Synthetic labelled images from a seed: each of 10 classes has a
+    random prototype, and an image is its class's prototype plus unit
+    noise, so a few steps can lower the loss.  (x [B, *shape] float32,
+    y [B] int64) on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    protos = torch.randn(10, *shape, generator=g, device=device)
+    y = torch.randint(0, 10, (B,), generator=g, device=device)
+    return protos[y] + torch.randn(B, *shape, generator=g, device=device), y
+
+
+def _run_steps(tag: str, step, model, batch) -> tuple:
+    """TRAIN_WARMUP + TRAIN_STEPS steps on one batch: (losses, seconds of
+    the timed steps); raises unless the loss is finite and falling."""
+    losses = [step(model, *batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(model, *batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [x.item() for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} loss not finite and falling: {losses}")
+    return losses, wall
+
+
+def phase_resnet(card: str) -> dict:
+    """One float32 ResNet step at resnet18's widths (B=8, 32x32) on the card
+    and on the CPU from the same weights, SGD with momentum: the loss,
+    every gradient, the parameters and the new running statistics after
+    it.  Then ResNet-50 at bench_resnet.py's configuration: bf16 compute,
+    B=512 32x32x3 images, SGD lr 0.1 momentum 0.9, 13 steps."""
+    cfg = resnet.ResNetConfig.resnet18(dtype=torch.float32)
+    cpu = resnet.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_model = copy.deepcopy(cpu).to("cuda")
+    x, y = _class_images(8, (32, 32, 3), seed=8, device="cpu")
+    losses, grads = {}, {}
+    for name, model in (("cuda", card_model), ("cpu", cpu)):
+        step = resnet.make_train_step(cfg, torch.optim.SGD(model.parameters(), lr=RESNET_LR,
+                                                           momentum=0.9))
+        losses[name] = step(model, x.to(name), y.to(name)).item()
+        grads[name] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    # f32 on both sides, cuDNN against the CPU's convolutions: the loss to
+    # 1e-4 relative, each gradient and each new running statistic to 1e-3
+    # and 1e-4 of its tensor's largest entry (a gradient at rounding level,
+    # behind a zero-initialised BatchNorm scale, as _step_errors says); a
+    # first SGD step moves each
+    # parameter by lr x its gradient, so the parameters agree to lr x the
+    # gradient tolerance (plus float32 rounding of the parameter, 1e-6 of
+    # its largest entry)
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    worst_g, _, _, zero = _step_errors(card_model, cpu, grads)
+    cpu_params, cpu_bufs = dict(cpu.named_parameters()), dict(cpu.named_buffers())
+    worst_p = max(((p.detach().cpu() - cpu_params[n].detach()).abs().max()
+                   / (RESNET_LR * 1e-3 * grads["cpu"][n].abs().max()
+                      + 1e-6 * cpu_params[n].detach().abs().max())).item()
+                  for n, p in card_model.named_parameters())
+    worst_s = max(_rel(b.cpu(), cpu_bufs[n])[1] for n, b in card_model.named_buffers())
+    ok = (math.isfinite(losses["cuda"]) and loss_err <= 1e-4 and worst_g <= 1e-3
+          and _zero_grads_ok(zero) and worst_p <= 1.0 and worst_s <= 1e-4)
+    res = {"parity": {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+                      "loss_rel_err": loss_err, "grad_err_over_max": worst_g,
+                      "zero_grad_tensors": zero, "param_err_over_tol": worst_p,
+                      "batch_stats_err_over_max": worst_s}}
+    print(f"[resnet] resnet18 widths f32 B=8 32x32, one SGD-momentum step, card vs CPU: loss "
+          f"{losses['cuda']:.6f} vs {losses['cpu']:.6f} (rel {loss_err:.2e}, tol 1e-4); grads "
+          f"max|err|/max|g| {worst_g:.2e} (tol 1e-3); {_fmt_zero(zero)}; params "
+          f"{worst_p:.2e} of their tolerance; "
+          f"new batch stats max|err|/max {worst_s:.2e} (tol 1e-4) {'ok' if ok else 'FAIL'} "
+          f"— {card}", flush=True)
+    if not ok:
+        raise AssertionError(f"ResNet training parity failed: {res}")
+    del cpu, card_model
+
+    cfg = resnet.ResNetConfig.resnet50()
+    model = resnet.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = resnet.make_train_step(cfg, torch.optim.SGD(model.parameters(), lr=RESNET_LR,
+                                                       momentum=0.9))
+    batch = _class_images(RESNET_B, (32, 32, 3), seed=9, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall = _run_steps("ResNet-50", step, model, batch)
+    if not all(bool(torch.isfinite(b).all()) for b in model.buffers()):
+        raise AssertionError("ResNet-50 running statistics not finite")
+    res["resnet50"] = {"losses": losses, "step_ms": wall / TRAIN_STEPS * 1e3,
+                       "images_per_s": RESNET_B * TRAIN_STEPS / wall,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "params": resnet.num_params(model), "card": card}
+    r = res["resnet50"]
+    r.update(_profile_step(lambda: step(model, *batch)))
+    print(f"[resnet] ResNet-50 bf16 compute / f32 params, B={RESNET_B} 32x32x3, SGD lr "
+          f"{RESNET_LR} momentum 0.9: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{len(losses)} steps; step {r['step_ms']:.2f} ms (mean of {TRAIN_STEPS}), "
+          f"{r['images_per_s']:.0f} images/s, peak memory {r['peak_memory_gb']:.2f} GB; "
+          f"profiled step {r['profiled_step_ms']:.2f} ms, device busy "
+          f"{r['device_busy_ms_per_step']:.2f} ms, by kind {_fmt_ms(r['device_ms_by_kind'])} "
+          f"— {card}", flush=True)
+    for k in r["top_kernels"][:8]:
+        print(f"[resnet]   {k['ms_per_step']:9.3f} ms/step  x{k['count']:5d}  {k['name']}",
+              flush=True)
+    print("[resnet] " + json.dumps(res), flush=True)
+    return res
+
+
+def _small_model(tag: str, label: str, module, f32_cfg, bf16_cfg, shape: tuple,
+                 parity_b: int, train_b: int, card: str) -> dict:
+    """An f32 AdamW step card against CPU at ``parity_b``, then 13 bf16
+    AdamW steps at ``train_b`` with a falling loss (lr 3e-4, bench.py's
+    AdamW)."""
+    cpu = module.init_model(f32_cfg, torch.Generator().manual_seed(0), device="cpu")
+    res = {"parity": _adamw_step_parity(
+        tag, f"{label} f32 B={parity_b}", cpu,
+        lambda m: module.make_train_step(f32_cfg, gpt2.make_adamw(m.parameters(), TRAIN_LR)),
+        _class_images(parity_b, shape, seed=10, device="cpu"), TRAIN_LR, card)}
+    model = module.init_model(bf16_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = module.make_train_step(bf16_cfg, gpt2.make_adamw(model.parameters(), TRAIN_LR))
+    losses, wall = _run_steps(label, step, model,
+                              _class_images(train_b, shape, seed=11, device="cuda"))
+    res["bf16"] = {"losses": losses, "step_ms": wall / TRAIN_STEPS * 1e3,
+                   "samples_per_s": train_b * TRAIN_STEPS / wall, "card": card}
+    print(f"[{tag}] {label} bf16 compute, B={train_b}, AdamW lr {TRAIN_LR}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; step "
+          f"{res['bf16']['step_ms']:.3f} ms, {res['bf16']['samples_per_s']:.0f} samples/s "
+          f"— {card}", flush=True)
+    return res
+
+
+def phase_vit(card: str) -> dict:
+    """ViT at its default config (32x32 images in 4x4 patches, d_model 192,
+    6 layers, 3 heads): f32 step card vs CPU, then bf16 steps."""
+    return _small_model("vit", "ViT (32/4, d 192, 6 layers, 3 heads)", vit,
+                        vit.ViTConfig(dtype=torch.float32), vit.ViTConfig(), (32, 32, 3),
+                        parity_b=8, train_b=256, card=card)
+
+
+def phase_mlp(card: str) -> dict:
+    """The MNIST MLP at its default config (784-256-256-10): f32 step card
+    vs CPU, then bf16 steps."""
+    return _small_model("mlp", "MLP 784-256-256-10", mlp, mlp.MLPConfig(),
+                        mlp.MLPConfig(dtype=torch.bfloat16), (28, 28), parity_b=128,
+                        train_b=512, card=card)
+
+
+def phase_moe(card: str) -> dict:
+    """MoEMLP at its default widths (d_model 128, d_ff 256, 8 experts, top
+    2, capacity factor 2) in float32 on x [4, 256, 128]: the forward and a
+    backward from a random cotangent on the card and on the CPU from the
+    same weights.  f32 on both sides in other summation orders: the output
+    to 1e-4 of its largest entry, the aux loss to 1e-4 relative, each
+    gradient (the weights' and the input's) to 1e-3 of its largest."""
+    cfg = moe.MoEConfig(dtype=torch.float32)
+    cpu = moe.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_model = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(4, 256, cfg.d_model, generator=g)
+    w = torch.randn(4, 256, cfg.d_model, generator=g)
+    got = {}
+    for name, model in (("cuda", card_model), ("cpu", cpu)):
+        xx = x.to(name).requires_grad_(True)
+        out, aux = model(xx)
+        ((out * w.to(name)).sum() + aux).backward()
+        got[name] = {"out": out.detach().cpu(), "aux": aux.item(), "dx": xx.grad.cpu(),
+                     **{n: p.grad.cpu() for n, p in model.named_parameters()}}
+    c, r = got["cuda"], got["cpu"]
+    out_err = _rel(c["out"], r["out"])[1]
+    aux_err = abs(c["aux"] - r["aux"]) / abs(r["aux"])
+    grad_err = max(_rel(c[n], r[n])[1] for n in c if n not in ("out", "aux"))
+    ok = out_err <= 1e-4 and aux_err <= 1e-4 and grad_err <= 1e-3
+    res = {"out_err_over_max": out_err, "aux_cuda": c["aux"], "aux_cpu": r["aux"],
+           "aux_rel_err": aux_err, "grad_err_over_max": grad_err, "card": card}
+    print(f"[moe] MoEMLP f32 (d 128, d_ff 256, 8 experts, top 2) x [4, 256, 128], card vs CPU: "
+          f"out max|err|/max {out_err:.2e} (tol 1e-4); aux {c['aux']:.6f} vs {r['aux']:.6f} "
+          f"(rel {aux_err:.2e}, tol 1e-4); grads max|err|/max|g| {grad_err:.2e} (tol 1e-3) "
+          f"{'ok' if ok else 'FAIL'} — {card}", flush=True)
+    if not ok:
+        raise AssertionError(f"MoE parity failed: {res}")
+    return res
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     fwd_rec = phase_kernels(card)
     train_recs = phase_bwd_kernels(card)
     phase_host_cost(card)
+    llama_recs = phase_llama_kernels(card)
     phase_parity(card)
     serve = phase_serve(card)
     fwd_rec["launches"] = serve["flash_launches"]
@@ -823,7 +1298,15 @@ def main() -> int:
     train = phase_train(card)
     for rec in train_recs:
         rec["launches"] = train["launches"][rec["name"]]
-    print(json.dumps({"kernels": [fwd_rec, *train_recs]}), flush=True)
+    phase_llama_parity(card)
+    llama_train = phase_llama_train(card)
+    for rec in llama_recs:
+        rec["launches"] = llama_train["launches"][rec["name"]]
+    phase_resnet(card)
+    phase_vit(card)
+    phase_mlp(card)
+    phase_moe(card)
+    print(json.dumps({"kernels": [fwd_rec, *train_recs, *llama_recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,6 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import common
 from ray_tpu_torch.ops.attention import causal_attention
 
@@ -86,43 +85,22 @@ class GPT2Config:
         return GPT2Config(n_layer=36, n_head=20, d_model=1280, **kw)  # 774M
 
 
-class Linear(nn.Linear):
-    """``nn.Linear`` stored in ``cfg.weight_dtype``, computing in
-    ``cfg.dtype`` (the cast is a no-op when the two agree)."""
-
-    def __init__(self, d_in: int, d_out: int, bias: bool, cfg: GPT2Config):
-        super().__init__(d_in, d_out, bias=bias, dtype=cfg.weight_dtype)
-        self.compute_dtype = cfg.dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
-        return F.linear(x, self.weight.to(self.compute_dtype), bias)
-
-
-class Embedding(nn.Embedding):
-    """``nn.Embedding`` stored in ``cfg.weight_dtype``; the gathered rows
-    are cast to ``cfg.dtype`` (the same values as casting the table)."""
-
-    def __init__(self, n: int, d: int, cfg: GPT2Config):
-        super().__init__(n, d, dtype=cfg.weight_dtype)
-        self.compute_dtype = cfg.dtype
-
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self.weight).to(self.compute_dtype)
+def _linear(d_in: int, d_out: int, bias: bool, cfg: GPT2Config) -> common.Linear:
+    return common.Linear(d_in, d_out, bias, cfg.dtype, cfg.weight_dtype)
 
 
 class Attention(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        self.qkv = Linear(cfg.d_model, 3 * cfg.d_model, cfg.use_bias, cfg)
-        self.attn_out = Linear(cfg.d_model, cfg.d_model, cfg.use_bias, cfg)
+        self.qkv = _linear(cfg.d_model, 3 * cfg.d_model, cfg.use_bias, cfg)
+        self.attn_out = _linear(cfg.d_model, cfg.d_model, cfg.use_bias, cfg)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        self.mlp_up = Linear(cfg.d_model, 4 * cfg.d_model, cfg.use_bias, cfg)
-        self.mlp_down = Linear(4 * cfg.d_model, cfg.d_model, cfg.use_bias, cfg)
+        self.mlp_up = _linear(cfg.d_model, 4 * cfg.d_model, cfg.use_bias, cfg)
+        self.mlp_down = _linear(4 * cfg.d_model, cfg.d_model, cfg.use_bias, cfg)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.mlp_down(F.gelu(self.mlp_up(h), approximate="tanh"))
@@ -153,12 +131,12 @@ class GPT2(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.cfg = cfg
-        self.wte = Embedding(cfg.vocab_size, cfg.d_model, cfg)
-        self.wpe = Embedding(cfg.max_seq_len, cfg.d_model, cfg)
+        self.wte = common.Embedding(cfg.vocab_size, cfg.d_model, cfg.dtype, cfg.weight_dtype)
+        self.wpe = common.Embedding(cfg.max_seq_len, cfg.d_model, cfg.dtype, cfg.weight_dtype)
         for i in range(cfg.n_layer):
             self.add_module(f"h_{i}", Block(cfg))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, dtype=torch.float32)
-        self.lm_head = Linear(cfg.d_model, cfg.vocab_size, False, cfg)
+        self.lm_head = _linear(cfg.d_model, cfg.vocab_size, False, cfg)
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
@@ -178,29 +156,7 @@ def init_model(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
     model in eval mode (GPT-2 has no dropout: the mode changes nothing).
     The draws are not the reference's (different RNGs): carry its weights
     across with ``models/convert.py`` for parity."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        model = GPT2(cfg)
-    model = model.to_empty(device=dev)
-    gen_dev = generator.device if generator is not None else dev
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-                continue
-            if isinstance(mod, nn.Embedding):
-                std = 1.0 / math.sqrt(mod.embedding_dim)
-            elif isinstance(mod, nn.Linear):
-                std = 1.0 / math.sqrt(mod.in_features)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            else:
-                continue
-            w = torch.randn(mod.weight.shape, generator=generator, device=gen_dev,
-                            dtype=torch.float32)
-            mod.weight.copy_(w * std)
-    return model.eval()
+    return common.init_model(lambda: GPT2(cfg), generator, device)
 
 
 num_params = common.num_params
@@ -219,14 +175,7 @@ def make_train_step(cfg: GPT2Config, optimizer: torch.optim.Optimizer):
     """train_step(model, tokens, targets) -> loss: one AdamW step of
     ``model`` in place (see ``models/common.py``).  ``model`` must be
     built from ``cfg``, the config the reference's step applies."""
-    step = common.make_train_step(loss_fn, optimizer)
-
-    def train_step(model: GPT2, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        if model.cfg != cfg:
-            raise ValueError(f"model built from {model.cfg}, step made for {cfg}")
-        return step(model, tokens, targets)
-
-    return train_step
+    return common.make_train_step(loss_fn, cfg, optimizer)
 
 
 def make_adamw(params, lr: float = 3e-4, weight_decay: float = 0.1) -> torch.optim.AdamW:

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert out["bad"] == [], out["bad"]
     for mod in ("ray_tpu_torch.ops.flash_attention", "ray_tpu_torch.models.convert",
                 "ray_tpu_torch.models.common", "ray_tpu_torch.serve.llm.engine",
-                "ray_tpu_torch.ops._build"):
+                "ray_tpu_torch.ops._build", "ray_tpu_torch.models.llama",
+                "ray_tpu_torch.models.resnet", "ray_tpu_torch.models.vit",
+                "ray_tpu_torch.models.mlp", "ray_tpu_torch.models.moe"):
         assert mod in out["imported"]
 
 

@@ -40,6 +40,13 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def _row_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max over rows (all but the last dim) of max |got - ref| over that
+    row's max |ref|."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+
 # f32: both sides compute in f32, in another summation order.  bf16: the
 # kernels round P and dS to bf16 before their products (2^-9 relative per
 # entry) where the plain version keeps f32, and both round each output once
@@ -197,3 +204,97 @@ def test_flash_dq_bf16_is_deterministic_on_card():
     torch.cuda.synchronize()
     assert bool(torch.isfinite(first.float()).all())
     assert torch.equal(first, second)
+
+
+def _llama_gqa_inputs(T, seed):
+    """Llama-1B's attention inputs at B=1 in bf16: q [1, T, 16, 128], k and
+    v drawn for 8 KV heads and repeated to 16 as LlamaAttention repeats
+    them (contiguous), dO."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(heads):
+        return torch.randn(1, T, heads, 128, generator=g, device="cuda").to(torch.bfloat16)
+
+    q = draw(16)
+    k, v = (torch.repeat_interleave(draw(8), 2, dim=2) for _ in range(2))
+    return q, k, v, draw(16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_flash_bf16_at_llama_shape_on_card(kernel):
+    """B1, B2 and B3 in bf16, causal, at Llama-1B's attention [1, 4096, 16,
+    128] with contiguous GQA-repeated k and v, against their plain
+    versions (tolerances as above: 2e-2 on O and 1e-3 on the LSE; 1e-2 of
+    each gradient's largest entry).  O is also held row by row, to 2e-2 of
+    the row's largest entry, as chip_smoke.py holds it: at T=4096 the late
+    rows' entries are about 0.02, so the absolute limit alone would miss a
+    dropped V tile there; the test shows that the plain version with keys
+    T-128..T-65 of V zeroed fails the row check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    q, k, v, do = _llama_gqa_inputs(4096, seed=11)
+    if kernel == "fwd":
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
+        assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
+        assert _row_rel_err(out, ref_out) <= 2e-2
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        v_fault = v.clone()
+        v_fault[:, -128:-64] = 0
+        assert _row_rel_err(fa.flash_attention_fwd_reference(q, k, v_fault)[0], ref_out) > 2e-2
+        return
+    o, lse = fa.flash_attention_fwd_reference(q, k, v)
+    delta = fa._delta(o, do)
+    if kernel == "dq":
+        got = (fa.flash_attention_dq(q, k, v, do, lse, delta),)
+        ref = (fa.flash_attention_dq_reference(q, k, v, do, lse, delta),)
+    else:
+        got = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+        ref = fa.flash_attention_dkv_reference(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel_err(a, b) <= BWD_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+def test_llama_block_on_card_matches_cpu():
+    """One Llama block at Llama-1B's widths (d_model 2048, 16 heads over 8
+    KV heads, d_ff 5504) in float32, B=1, T=256: forward and backward on
+    the card (one launch each of B1, B2 and B3) against the same block on
+    the CPU (the plain versions).  f32 on both sides in other summation
+    orders: the output to 1e-4 and each gradient to 1e-3 of its largest
+    entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama_1b(dtype=torch.float32)
+    cpu = llama.LlamaBlock(cfg)
+    for i, p in enumerate(cpu.parameters()):
+        g = torch.Generator().manual_seed(i)
+        p.data = torch.randn(p.shape, generator=g) * (0.02 if p.dim() > 1 else 0.1) + (
+            0.0 if p.dim() > 1 else 1.0)
+    card = llama.LlamaBlock(cfg).cuda()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(99)
+    x = torch.randn(1, 256, cfg.d_model, generator=g)
+    w = torch.randn(1, 256, cfg.d_model, generator=g)
+    counts = lambda: (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,  # noqa: E731
+                      fa.flash_attention_dkv.launches)
+    results = {}
+    for name, block in (("cuda", card), ("cpu", cpu)):
+        before = counts()
+        xx = x.to(name).requires_grad_(True)
+        out = block(xx)
+        (out * w.to(name)).sum().backward()
+        if name == "cuda":
+            torch.cuda.synchronize()
+            assert counts() == tuple(c + 1 for c in before)
+        results[name] = [out.detach().cpu(), xx.grad.cpu()] + [
+            p.grad.cpu() for p in block.parameters()]
+    assert _rel_err(results["cuda"][0], results["cpu"][0]) <= 1e-4
+    for a, b in zip(results["cuda"][1:], results["cpu"][1:]):
+        assert _rel_err(a, b) <= 1e-3
