@@ -63,6 +63,18 @@ and prints no result line):
                   CPU, then 13 bf16 steps with a falling loss.
 14. moe         — MoEMLP at its default widths in float32: output, aux loss
                   and gradients, card vs CPU.
+15. runtime     — the port's actor runtime and trainer on the card:
+                  ray_tpu_torch.init(num_cpus=4) reads GPU 1.0 from the
+                  node's device files, and no runtime process but the
+                  worker holds a CUDA context; (a) a num_gpus=1 actor takes
+                  phase 8's f32 GPT-2 small step and returns its loss (a
+                  CPU tensor, through the object store) and its launches,
+                  equal to the driver's to 1e-4 relative and (12, 12, 12);
+                  (b) GPT-2 small at bench.py's configuration trains inside
+                  TorchTrainer.fit() on one GPU worker, phase 9's warm-up
+                  and timed steps, B1 = B2 = B3 = n_layer launches a step
+                  counted inside the worker, its step time printed beside
+                  phase 9's raw step; shutdown() leaves no port process.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -75,19 +87,25 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.models import gpt2, llama, mlp, moe, resnet, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine
 from ray_tpu_torch.serve.llm.engine import FINISHED
+from ray_tpu_torch.train import RunConfig, ScalingConfig
+from ray_tpu_torch.train.torch import TorchTrainer
+from ray_tpu_torch.train.torch.gpt2_loop import train_loop_per_worker
 
 # H100 SXM published peaks (NVIDIA data sheet; dense bf16 tensor cores,
 # HBM3), the denominators of every bound below
@@ -1283,6 +1301,188 @@ def phase_moe(card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# The runtime: GPU as a resource, a num_gpus=1 actor, and the training
+# path inside TorchTrainer.fit() on one GPU worker
+# ----------------------------------------------------------------------
+_RUNTIME_ENTRY = "ray_tpu_torch._private."  # head_main, raylet_main, default_worker
+
+
+def _port_processes() -> dict:
+    """pid -> command line of every live process running one of the
+    port's runtime entry points."""
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if _RUNTIME_ENTRY in cmd:
+            out[int(pid)] = cmd.strip()
+    return out
+
+
+def _maps_libcuda(pid: int) -> bool:
+    """Whether the process has the CUDA driver library mapped (a process
+    that never loaded it holds no CUDA context)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda" in f.read()
+
+
+def _compute_app_pids() -> set:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+class GPT2StepActor:
+    """A GPU actor that takes one float32 AdamW step of GPT-2 small, as
+    phase 8's card step does."""
+
+    def step(self, seed: int, tokens, lr: float):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+        model = gpt2.init_model(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        model = model.to("cuda")
+        step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr))
+        toks = torch.tensor(tokens).to("cuda")  # a copy: the arg is read-only
+        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_dq.launches = 0
+        fa.flash_attention_dkv.launches = 0
+        loss = step(model, toks[:, :-1], toks[:, 1:])
+        torch.cuda.synchronize()
+        launches = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+                    fa.flash_attention_dkv.launches)
+        return {"loss": loss, "launches": launches, "pid": os.getpid(),
+                "device": torch.cuda.get_device_name(0)}
+
+
+def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
+    """The port's runtime on the card.  ``parity`` is phase 8's result (the
+    driver's own f32 step), ``raw`` phase 9's (the raw training path)."""
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks go back to the card
+    t0 = time.perf_counter()
+    ctx = ray_tpu_torch.init(num_cpus=4)
+    res = {"session_dir": ctx["session_dir"], "card": card}
+    try:
+        resources = ray_tpu_torch.cluster_resources()
+        res["cluster_gpus"] = resources.get("GPU")
+        if resources.get("GPU") != 1.0 or torch.cuda.device_count() != 1:
+            raise AssertionError(f"the raylet counts GPU {resources.get('GPU')} on a machine "
+                                 f"with {torch.cuda.device_count()} card(s): {resources}")
+        runtime_pids = set(_port_processes())
+
+        # (a) a num_gpus=1 actor: phase 8's step, its loss back through the
+        # object store
+        tokens = np.random.default_rng(3).integers(0, PROMPT_VOCAB, size=(2, 129))
+        actor = GPT2StepActor.remote()
+        out = ray_tpu_torch.get(actor.step.remote(0, tokens, TRAIN_LR), timeout=600)
+        loss = out["loss"]
+        if not (isinstance(loss, torch.Tensor) and loss.device.type == "cpu"):
+            raise AssertionError(f"the actor's loss arrived as {type(loss)} on "
+                                 f"{getattr(loss, 'device', None)}, expected a CPU tensor")
+        rel = abs(loss.item() - parity["loss_cuda"]) / abs(parity["loss_cuda"])
+        want = (12, 12, 12)
+        # no runtime process but the worker holds the CUDA driver: the GCS
+        # and the raylet share the head process; the worker, alive here,
+        # is the check's positive control.  The maps decide: in a
+        # container nvidia-smi lists pids of another namespace
+        smi_pids = _compute_app_pids()
+        head = [pid for pid, cmd in _port_processes().items() if "head_main" in cmd]
+        with_cuda = sorted(pid for pid in runtime_pids | {out["pid"]} if _maps_libcuda(pid))
+        res["actor"] = {"loss": loss.item(), "driver_loss": parity["loss_cuda"],
+                        "loss_rel_err": rel, "launches": list(out["launches"]),
+                        "device": out["device"], "worker_pid": out["pid"], "head_pids": head,
+                        "compute_app_pids": sorted(smi_pids),
+                        "runtime_pids_with_libcuda": with_cuda}
+        print(f"[runtime] init(num_cpus=4): cluster GPU {resources['GPU']}; head pid(s) {head}, "
+              f"runtime processes with the CUDA driver mapped {with_cuda} (worker {out['pid']}), "
+              f"nvidia-smi compute apps {sorted(smi_pids)} — {card}", flush=True)
+        print(f"[runtime] num_gpus=1 actor on {out['device']}: GPT-2 small f32 one AdamW step, "
+              f"loss {loss.item():.6f} (a CPU tensor through the object store) vs the driver's "
+              f"{parity['loss_cuda']:.6f} (rel {rel:.2e}, tol 1e-4); launches B1/B2/B3 "
+              f"{tuple(out['launches'])} (want {want}) — {card}", flush=True)
+        if rel > 1e-4 or tuple(out["launches"]) != want:
+            raise AssertionError(f"the GPU actor's step disagrees: {res['actor']}")
+        if not head or set(head) & smi_pids or with_cuda != [out["pid"]]:
+            raise AssertionError(f"a runtime process other than the GPU worker holds CUDA: "
+                                 f"{res['actor']}")
+        ray_tpu_torch.kill(actor)
+
+        # (b) the training path inside TorchTrainer.fit() on one GPU worker
+        cfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+        toks = np.random.default_rng(4).integers(0, PROMPT_VOCAB, size=(TRAIN_B, TRAIN_T + 1))
+        _reset_counts()  # the driver's counts: they must stay 0 while the worker trains
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as storage:
+            result = TorchTrainer(
+                train_loop_per_worker,
+                train_loop_config={"cfg": cfg, "seed": 0, "tokens": toks, "lr": TRAIN_LR,
+                                   "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+                                   "device": "cuda", "peak_flops": PEAK_BF16_FLOPS},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(name="gpt2_in_framework", storage_path=storage),
+            ).fit()
+        m = result.metrics
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        want = [cfg.n_layer * n_steps] * 3
+        losses = m["losses"]
+        res["trainer"] = {**m, "raw_step_ms": raw["step_ms"], "raw_losses": raw["losses"],
+                          "driver_launches": list(_launch_counts())}
+        print(f"[runtime] TorchTrainer.fit(), ScalingConfig(num_workers=1, use_gpu=True), GPT-2 "
+              f"small bf16 compute / f32 params, B={TRAIN_B} T={TRAIN_T}, on "
+              f"{m.get('device_name')}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+              f"{n_steps} steps; in-framework step {m['step_ms']:.2f} ms beside the raw step "
+              f"{raw['step_ms']:.2f} ms (phase 9, this run), {m['tokens_per_s']:.0f} tok/s, "
+              f"MFU {m['mfu']:.4f}; launches inside the worker B1/B2/B3 {m['launches']} = "
+              f"{cfg.n_layer} x {n_steps}, the driver's {tuple(_launch_counts())} — {card}",
+              flush=True)
+        if m["launches"] != want:
+            raise AssertionError(f"the worker launched (B1, B2, B3) {m['launches']}, want {want}")
+        if _launch_counts() != (0, 0, 0):
+            raise AssertionError("the driver's counts moved during fit(): the step ran here")
+        if not (m["finite"] and losses[-1] < losses[0]):
+            raise AssertionError(f"in-framework loss not finite and falling: {losses}")
+        # the same weights (seed 0), batch, optimizer and steps as phase 9:
+        # every step is the same bf16 computation in another process, so
+        # every loss, not only the first, holds the update to the raw run's
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses, raw["losses"])]
+        res["trainer"]["loss_rel_err_vs_raw"] = max(rels)
+        print(f"[runtime] losses {losses[0]:.6f} ... {losses[-1]:.6f} vs phase 9's "
+              f"{raw['losses'][0]:.6f} ... {raw['losses'][-1]:.6f} on the same weights and batch: "
+              f"max rel {max(rels):.2e} over {len(rels)} steps (tol 1e-5)", flush=True)
+        if len(losses) != len(raw["losses"]) or max(rels) > 1e-5:
+            raise AssertionError(f"in-framework losses {losses} != raw {raw['losses']}")
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 20
+    left = _port_processes()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left = _port_processes()
+    res["processes_left"] = left
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[runtime] shutdown(): port processes left {sorted(left)}; phase took "
+          f"{res['seconds']:.1f} s", flush=True)
+    if left:
+        raise AssertionError(f"port processes still running after shutdown(): {left}")
+    print("[runtime] " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1294,7 +1494,7 @@ def main() -> int:
     serve = phase_serve(card)
     fwd_rec["launches"] = serve["flash_launches"]
     phase_profile(card)
-    phase_train_parity(card)
+    train_parity = phase_train_parity(card)
     train = phase_train(card)
     for rec in train_recs:
         rec["launches"] = train["launches"][rec["name"]]
@@ -1306,6 +1506,11 @@ def main() -> int:
     phase_vit(card)
     phase_mlp(card)
     phase_moe(card)
+    runtime = phase_runtime(card, train_parity, train)
+    in_framework = dict(zip(("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"),
+                            runtime["trainer"]["launches"]))
+    for rec in train_recs:
+        rec["in_framework_launches"] = in_framework[rec["name"]]
     print(json.dumps({"kernels": [fwd_rec, *train_recs, *llama_recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

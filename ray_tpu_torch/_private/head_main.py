@@ -1,0 +1,89 @@
+"""Head-node process: GCS + head raylet on one asyncio loop.
+
+(reference: src/ray/gcs/gcs_server/gcs_server_main.cc + raylet/main.cc:123
+— two processes there; co-hosted here, same protocols.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import logging
+import signal
+
+from ray_tpu_torch._private.config import CONFIG
+from ray_tpu_torch._private.gcs_server import GcsServer
+from ray_tpu_torch._private.ids import NodeID
+from ray_tpu_torch._private.raylet import Raylet
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--session-dir", required=True)
+    parser.add_argument("--gcs-address", required=True)
+    parser.add_argument("--raylet-address", required=True)
+    parser.add_argument("--store-dir", required=True)
+    parser.add_argument("--resources", required=True)
+    parser.add_argument("--config", default="")
+    parser.add_argument("--owner-pid", type=int, default=0)
+    args = parser.parse_args()
+
+    logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s")
+    if args.config:
+        CONFIG.load_overrides(args.config)
+    # The dashboard (HTTP API, job submission) and the Ray Client server
+    # are not ported yet (ROADMAP Queue A item 6): both are off by
+    # default, and the head refuses to start if either is asked for.
+    if CONFIG.dashboard_port >= 0 or CONFIG.ray_client_server_port >= 0:
+        raise SystemExit(
+            "ray_tpu_torch has no dashboard or client server yet (ROADMAP "
+            "Queue A item 6): leave dashboard_port and ray_client_server_port at -1"
+        )
+
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+
+    gcs = GcsServer(args.gcs_address, {"session_dir": args.session_dir}, loop=loop)
+    raylet = Raylet(
+        node_id=NodeID.from_random(),
+        address=args.raylet_address,
+        gcs_address=args.gcs_address,
+        store_dir=args.store_dir,
+        resources=json.loads(args.resources),
+        is_head=True,
+        session_dir=args.session_dir,
+        loop=loop,
+    )
+
+    stop_event = asyncio.Event()
+
+    def _sig(*_):
+        loop.call_soon_threadsafe(stop_event.set)
+
+    signal.signal(signal.SIGTERM, _sig)
+    signal.signal(signal.SIGINT, _sig)
+
+
+    async def run():
+        await gcs.start()
+        await raylet.start()
+        from ray_tpu_torch._private.node import owner_watchdog
+
+        watchdog_task = (
+            asyncio.ensure_future(owner_watchdog(args.owner_pid, stop_event))
+            if args.owner_pid
+            else None
+        )
+        await stop_event.wait()
+        try:
+            await asyncio.wait_for(raylet.stop(), timeout=4)
+            await asyncio.wait_for(gcs.stop(), timeout=2)
+        except Exception:
+            pass
+
+    loop.run_until_complete(run())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,14 @@
 """Causal attention dispatch (port of ``ray_tpu/ops/attention.py``).
 
 One entry point for the models: ``causal_attention`` takes ``[B, T, H, D]``
-q, k, v and is differentiable.  On the card it launches the hand-written
-flash kernels (``ops/flash_attention.py``: the forward, and the dq and dkv
-kernels in the backward) for every shape; on the CPU it runs their plain
-versions.  There is no shape gate and no fallback between the two.
+q, k, v and is differentiable.  For the head dims the hand-written flash
+kernels take (64 and 128) it runs ``flash_attention``
+(``ops/flash_attention.py``: the forward, and the dq and dkv kernels in the
+backward), which launches the kernels on the card and their plain
+versions on the CPU.  Every other head dim takes the einsum path
+``reference_causal_attention``, as the reference takes its einsum path
+where its Pallas kernel does not fit (``_use_pallas``).  The condition is
+on the shape alone, never on a failure: the wrappers stay strict.
 Sequence-parallel ring attention (``mesh``/``sp_axis``) is not ported
 yet.
 """
@@ -15,7 +19,7 @@ from typing import Any, Optional
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.flash_attention import FLASH_HEAD_DIMS, flash_attention
 
 
 def reference_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -37,4 +41,6 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "sequence-parallel ring attention is not ported to ray_tpu_torch yet"
         )
-    return flash_attention(q, k, v, causal=True)
+    if q.shape[-1] in FLASH_HEAD_DIMS:
+        return flash_attention(q, k, v, causal=True)
+    return reference_causal_attention(q, k, v)

@@ -212,8 +212,9 @@ flash_dq_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restri
       s[i] = p * (dp[i] - delta_r[r]) * scale;
     }
 
-    // dQ += dS K: dS (rounded to bf16) from registers, the same K tile read
-    // MN-major through the descriptor's transpose bit
+    // dQ += dS K: dS (rounded to bf16, the operand type wgmma takes; the
+    // reference's Pallas kernel keeps dS in f32) from registers, the same K
+    // tile read MN-major through the descriptor's transpose bit
     uint32_t ads[kTile / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
@@ -395,8 +396,10 @@ flash_dkv_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restr
       sT[i] = p;
     }
 
-    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (rounded to bf16) from
-    // registers, dO and Q read MN-major through the descriptor's transpose bit
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (rounded to bf16, the
+    // operand type wgmma takes; the reference's Pallas kernel keeps P and dS
+    // in f32) from registers, dO and Q read MN-major through the
+    // descriptor's transpose bit
     uint32_t ap[kQ / 16][4], ads[kQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kQ / 16; ++kk)

@@ -23,9 +23,10 @@
 // thread, so tile j+1 is in flight while tile j is in the products and no
 // thread spends registers or instructions on copies.  S = Q K^T is a wgmma
 // with both operands in shared memory, K-major as they land.  O += P V is a
-// wgmma with P from registers (the S accumulator, rounded to bf16 as the
-// reference rounds its probabilities) and V read MN-major through the
-// descriptor's transpose bit: V is never transposed by a thread.  The grid
+// wgmma with P from registers (the S accumulator, rounded to bf16 because
+// wgmma takes bf16 operands; the reference's Pallas kernel keeps P in f32)
+// and V read MN-major through the descriptor's transpose bit: V is never
+// transposed by a thread.  The grid
 // launches each head's heaviest query tile first, so the longest chains
 // start in the first wave.  TMA zero-fills rows past T; those keys are
 // masked to -1e30 (a zero key would score 0), those rows not written.
@@ -195,8 +196,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdMaps maps, __nv_bfloat16* __res
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: P (rounded to bf16, as the reference rounds it) from
-    // registers, V read MN-major through the descriptor's transpose bit
+    // O += P V: P (rounded to bf16, the operand type wgmma takes; the
+    // reference's Pallas kernel keeps P in f32) from registers, V read
+    // MN-major through the descriptor's transpose bit
     uint32_t pa[kBlockN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {

@@ -33,7 +33,7 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30  # the reference's mask value
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 128)  # the head dims the kernels take
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,7 +82,7 @@ def _check_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     B, T, H, D = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
-    if D not in _HEAD_DIMS:
+    if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash attention takes head dim 64 or 128, got {D}")
     if T < 1 or B * H < 1 or B * H > 65535:
         raise ValueError(f"unsupported shape {tuple(q.shape)} (need T >= 1, 1 <= B*H <= 65535)")
@@ -154,8 +154,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is contiguous; in bfloat16 16-byte-aligned with strides that are
     multiples of 8) and raises on anything else; a CPU tensor runs the
     plain version.  bfloat16 runs on the tensor cores with its
-    probabilities rounded to bfloat16 before P.V, as the reference's
-    attention rounds them; float32 computes in float32 throughout.
+    probabilities rounded to bfloat16 before P.V, because wgmma takes
+    bfloat16 operands (the reference's Pallas kernel and this plain version
+    keep them in float32); float32 computes in float32 throughout.
     ``flash_attention_fwd.launches`` counts kernel launches."""
     if not _on_card(q, "flash_attention_fwd"):
         return flash_attention_fwd_reference(q, k, v, causal)

@@ -1,12 +1,18 @@
 """The port stands alone: ray_tpu_torch and chip_smoke.py import neither
 JAX nor any module of the JAX package (the machine with the card has no
-JAX), and chip_smoke.py refuses to run without a card."""
+JAX), and chip_smoke.py refuses to run without a card.  The port's
+runtime keeps to its own processes, session root and environment, never
+imports torch at module level, and counts the node's GPUs without
+touching torch or the card."""
 
 import ast
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +47,11 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch.models.common", "ray_tpu_torch.serve.llm.engine",
                 "ray_tpu_torch.ops._build", "ray_tpu_torch.models.llama",
                 "ray_tpu_torch.models.resnet", "ray_tpu_torch.models.vit",
-                "ray_tpu_torch.models.mlp", "ray_tpu_torch.models.moe"):
+                "ray_tpu_torch.models.mlp", "ray_tpu_torch.models.moe",
+                "ray_tpu_torch._private.raylet", "ray_tpu_torch._private.gcs_server",
+                "ray_tpu_torch._private.worker", "ray_tpu_torch._native.arena",
+                "ray_tpu_torch.train.torch.config", "ray_tpu_torch.train.torch.gpt2_loop",
+                "ray_tpu_torch.util.collective.cpu_group"):
         assert mod in out["imported"]
 
 
@@ -69,3 +79,145 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+_RUNTIME_MODULES = (
+    "ray_tpu_torch", "ray_tpu_torch.train", "ray_tpu_torch.train.torch",
+    "ray_tpu_torch.air", "ray_tpu_torch.util.collective", "ray_tpu_torch.cluster_utils",
+    "ray_tpu_torch._private.head_main", "ray_tpu_torch._private.raylet_main",
+    "ray_tpu_torch._private.gcs_main", "ray_tpu_torch._private.default_worker",
+    "ray_tpu_torch._private.profiling", "ray_tpu_torch._private.serialization",
+    "ray_tpu_torch._private.accelerators.gpu",
+)
+
+
+def test_runtime_modules_do_not_import_torch():
+    """The raylet, the GCS and every pooled worker import these: none of
+    them imports torch at module level."""
+    code = ("import importlib, json, sys\n"
+            f"for m in {_RUNTIME_MODULES!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] == 'torch')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_ACTOR_PROBE = r"""
+import json, os, sys
+import ray_tpu_torch
+
+ctx = ray_tpu_torch.init(num_cpus=2)
+
+@ray_tpu_torch.remote
+class Probe:
+    def report(self):
+        return {"modules": sorted(sys.modules),
+                "env": sorted(k for k in os.environ if k.startswith("RAY_TPU")),
+                "argv": sys.argv}
+
+try:
+    out = ray_tpu_torch.get(Probe.remote().report.remote(), timeout=120)
+    out["session_dir"] = ctx["session_dir"]
+    out["driver_modules"] = sorted(sys.modules)
+finally:
+    ray_tpu_torch.shutdown()
+print(json.dumps(out))
+"""
+
+
+def test_port_actor_runs_port_modules_under_its_own_root_and_prefix(tmp_path):
+    """A port actor's process holds neither JAX nor any module of the JAX
+    package, runs the port's worker entry point, and sees only the port's
+    environment prefix; the session lives under the port's own root in
+    the caller's temp dir, so programs with temp dirs of their own never
+    share a cluster-address file."""
+    probe_tmp = tempfile.mkdtemp(prefix="rtt_")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAY_TPU")}
+    env.update(PYTHONPATH=REPO_ROOT, TMPDIR=probe_tmp)
+    env["RAY_TPU_TORCH_arena_prefault_bytes"] = "0"  # no 2 GiB shm prefault
+    env["RAY_TPU_TORCH_memory_monitor_enabled"] = "0"  # the machine is shared
+    try:
+        proc = subprocess.run([sys.executable, "-c", _ACTOR_PROBE], cwd=str(tmp_path), env=env,
+                              capture_output=True, text=True, timeout=180)
+    finally:
+        shutil.rmtree(probe_tmp, ignore_errors=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for mods in (out["modules"], out["driver_modules"]):
+        assert [m for m in mods if _forbidden(m)] == []
+        assert [m for m in mods if m.split(".")[0] == "torch"] == []
+    assert "ray_tpu_torch._private.default_worker" in out["modules"] or any(
+        "ray_tpu_torch/_private/default_worker" in a for a in out["argv"])
+    assert out["env"] and all(k.startswith("RAY_TPU_TORCH_") for k in out["env"]), out["env"]
+    root = os.path.join(probe_tmp, "ray_tpu_torch")
+    if len(root) > 42:  # a temp dir too long for socket paths: the keyed short root
+        root = "/tmp/ray_tpu_torch_" + hashlib.sha1(root.encode()).hexdigest()[:12]
+    assert out["session_dir"].startswith(root + "/session_"), out["session_dir"]
+
+
+def test_session_root_follows_the_temp_dir(monkeypatch):
+    """The root is ``<temp dir>/ray_tpu_torch``; a temp dir too long for a
+    unix socket path gets a short root keyed by that dir, one per dir."""
+    from ray_tpu_torch._private import node
+
+    monkeypatch.setattr(tempfile, "tempdir", "/tmp/a")
+    assert node._default_root() == "/tmp/a/ray_tpu_torch"
+    roots = set()
+    for d in ("/tmp/" + "x" * 40, "/tmp/" + "y" * 40):
+        monkeypatch.setattr(tempfile, "tempdir", d)
+        root = node._default_root()
+        assert root.startswith("/tmp/ray_tpu_torch_") and len(root) <= node._MAX_ROOT_LEN
+        roots.add(root)
+    assert len(roots) == 2
+    # a worker's direct-push socket is the longest path under the root
+    longest = (f"{'r' * node._MAX_ROOT_LEN}/session_20261017_034437_abcdef12"
+               f"/sockets/w_{'0' * 16}.sock")
+    assert len(longest) <= 107
+
+
+def test_gpu_detection_counts_device_files_and_honours_visible_devices(tmp_path):
+    """GPU detection counts /dev/nvidia<N> (not nvidiactl or nvidia-uvm),
+    restricted to as many cards as CUDA_VISIBLE_DEVICES has entries, and
+    imports no torch."""
+    dev = tmp_path / "dev"
+    dev.mkdir()
+    for name in ("nvidia0", "nvidia1", "nvidia2", "nvidiactl", "nvidia-uvm", "nvidia-modeset"):
+        (dev / name).touch()
+    code = ("import json, os, sys\n"
+            "from ray_tpu_torch._private.accelerators.gpu import GPUAcceleratorManager as G\n"
+            "out = {}\n"
+            "for v in (None, '1', '2,0', '', '0,1,2,3', 'GPU-aa,GPU-bb'):\n"
+            "    os.environ.pop('CUDA_VISIBLE_DEVICES', None)\n"
+            "    if v is not None: os.environ['CUDA_VISIBLE_DEVICES'] = v\n"
+            f"    out[repr(v)] = G.get_current_node_num_accelerators({str(dev)!r})\n"
+            "out['torch'] = 'torch' in sys.modules\n"
+            "print(json.dumps(out))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=60, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"None": 3, "'1'": 1, "'2,0'": 2, "''": 0, "'0,1,2,3'": 3,
+                   "'GPU-aa,GPU-bb'": 2, "torch": False}
+
+
+def test_gpu_detection_skips_device_files_it_cannot_open(tmp_path, monkeypatch):
+    """A container can show the device file of a card its cgroup does not
+    let it use: such a file does not count."""
+    from ray_tpu_torch._private.accelerators.gpu import GPUAcceleratorManager
+
+    for name in ("nvidia0", "nvidia1"):
+        (tmp_path / name).touch()
+    real_open = os.open
+
+    def deny_nvidia1(path, flags, *args):
+        if os.path.basename(path) == "nvidia1":
+            raise PermissionError(1, "Operation not permitted", path)
+        return real_open(path, flags, *args)
+
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    assert GPUAcceleratorManager.get_current_node_num_accelerators(str(tmp_path)) == 2
+    monkeypatch.setattr(os, "open", deny_nvidia1)
+    assert GPUAcceleratorManager.get_current_node_num_accelerators(str(tmp_path)) == 1
+    (tmp_path / "nvidia0").unlink()
+    assert GPUAcceleratorManager.get_current_node_num_accelerators(str(tmp_path)) == 0

@@ -298,3 +298,60 @@ def test_llama_block_on_card_matches_cpu():
     assert _rel_err(results["cuda"][0], results["cpu"][0]) <= 1e-4
     for a, b in zip(results["cuda"][1:], results["cpu"][1:]):
         assert _rel_err(a, b) <= 1e-3
+
+
+@pytest.mark.parametrize("D, path", [(32, "plain"), (64, "flash"), (128, "flash")])
+def test_causal_attention_dispatch_by_head_dim(monkeypatch, D, path):
+    """causal_attention sends the head dims the kernels take (64, 128) to
+    the flash wrapper and every other one to the einsum path, as the
+    reference sends shapes its Pallas kernel does not fit to its einsum
+    path; the choice is on the shape, so it holds on the CPU too."""
+    from ray_tpu_torch.ops import attention
+
+    calls = []
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, causal: calls.append("flash") or q)
+    monkeypatch.setattr(attention, "reference_causal_attention",
+                        lambda q, k, v: calls.append("plain") or q)
+    q = torch.zeros(1, 8, 2, D)
+    attention.causal_attention(q, q, q)
+    assert calls == [path]
+
+
+@pytest.mark.cuda
+def test_gpt2_tiny_on_card_matches_cpu():
+    """GPT2Config.tiny (head dim 32, which the kernels do not take) runs
+    on the card through the einsum path with zero flash launches: its
+    prefill and one float32 AdamW step against the same model on the CPU.
+    f32 on both sides in other summation orders: logits and loss to 1e-4
+    of their largest entry, each gradient to 1e-3 of its largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the port's entry points run there)")
+    from ray_tpu_torch.models import gpt2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32, remat=False)
+    assert cfg.d_head not in fa.FLASH_HEAD_DIMS
+    cpu = gpt2.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = gpt2.GPT2(cfg).cuda()
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
+    counts = lambda: (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,  # noqa: E731
+                      fa.flash_attention_dkv.launches)
+    before = counts()
+    results = {}
+    for name, model in (("cuda", card), ("cpu", cpu)):
+        t = toks.to(name)
+        with torch.no_grad():
+            logits, k, v = gpt2.prefill_forward(model, t[:, :-1])
+        step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), 1e-3))
+        loss = step(model, t[:, :-1], t[:, 1:])
+        results[name] = {"logits": logits.cpu(), "k": k.cpu(), "v": v.cpu(),
+                         "loss": loss.cpu().reshape(1),
+                         **{n: p.grad.cpu() for n, p in model.named_parameters()}}
+    torch.cuda.synchronize()
+    assert counts() == before
+    for key in ("logits", "k", "v", "loss"):
+        assert _rel_err(results["cuda"][key], results["cpu"][key]) <= 1e-4, key
+    for n in dict(cpu.named_parameters()):
+        assert _rel_err(results["cuda"][n], results["cpu"][n]) <= 1e-3, n
