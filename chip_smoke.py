@@ -75,6 +75,28 @@ and prints no result line):
                   and timed steps, B1 = B2 = B3 = n_layer launches a step
                   counted inside the worker, its step time printed beside
                   phase 9's raw step; shutdown() leaves no port process.
+16. serve plane — the serve control plane on the card, under its own
+                  ray_tpu_torch.init(num_cpus=4): serve.run of
+                  llm.build_app(cfg), whose replica leases GPU 1.0 for its
+                  engine on the card, behind the HTTP proxy (the counting
+                  servers below keep build_app's deployment and swap its
+                  class).  (a) phase 6's
+                  16-request mix in float32 as 16 concurrent chunked HTTP
+                  streams: every request's greedy tokens equal this
+                  process's LLMEngine's on the same card; one StaticBatchLLMServer
+                  batch of 4 mixed-length prompts over HTTP, one lane
+                  decoding past max_seq_len, equal to this process's
+                  static server, with n_layer B1 launches in its replica; (b)
+                  phase 6's bf16 mix over HTTP: every request ends at its
+                  max_tokens, B1 launched n_layer x 16 times in the
+                  replica, zero KV blocks and sequences left, every token
+                  equal to phase 6's, client-side TTFT and decode rate
+                  beside phase 6's; (c) the controller
+                  and the proxy map neither libcuda nor libtorch, the
+                  replica maps libcuda; (d) serve.shutdown() and
+                  shutdown() leave no port process.  B1 is then held
+                  against its plain version and timed at the static
+                  batch's prefill shape.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -98,10 +120,12 @@ import numpy as np
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch import serve as rt_serve
 from ray_tpu_torch.models import gpt2, llama, mlp, moe, resnet, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
-from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine
+from ray_tpu_torch.serve import llm as rt_llm
+from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine, LLMServer, StaticBatchLLMServer
 from ray_tpu_torch.serve.llm.engine import FINISHED
 from ray_tpu_torch.train import RunConfig, ScalingConfig
 from ray_tpu_torch.train.torch import TorchTrainer
@@ -110,6 +134,7 @@ from ray_tpu_torch.train.torch.gpt2_loop import train_loop_per_worker
 # H100 SXM published peaks (NVIDIA data sheet; dense bf16 tensor cores,
 # HBM3), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores: B1's f32 route
 PEAK_BYTES = 3.35e12
 
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
@@ -167,14 +192,14 @@ def phase_build() -> None:
                 print(f"[build]   {line.strip()}", flush=True)
 
 
-def _qkv(T: int, H: int, D: int, dtype: torch.dtype, fused: bool, seed: int):
-    """q, k, v [1, T, H, D] on the card: views of one fused [1, T, 3*H*D]
+def _qkv(T: int, H: int, D: int, dtype: torch.dtype, fused: bool, seed: int, B: int = 1):
+    """q, k, v [B, T, H, D] on the card: views of one fused [B, T, 3*H*D]
     projection (the serving path's layout) or three contiguous tensors."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     if fused:
-        qkv = torch.randn(1, T, 3 * H * D, generator=g, device="cuda").to(dtype)
+        qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(dtype)
         return tuple(t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
-    return tuple(torch.randn(1, T, H, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+    return tuple(torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype) for _ in range(3))
 
 
 def _time_ms(fn, reps: int = 20, rounds: int = 7) -> float:
@@ -272,11 +297,13 @@ def _dkv_work(B, T, H, D, elt=2):
     return 8 * B * H * D * _causal_pairs(T), 6 * B * T * H * D * elt + 2 * B * H * T * 4
 
 
-def _record(name, path, shape, ms, plain_ms, library_ms, flops, bytes_moved, err, **extra):
+def _record(name, path, shape, ms, plain_ms, library_ms, flops, bytes_moved, err,
+            dtype: str = "bfloat16", **extra):
     """One kernel's entry of the JSON line; launches are filled in by the
-    phase that drives its path."""
+    phase that drives its path.  bf16 runs on the tensor cores, f32 on
+    the CUDA cores: each is bounded by its own peak."""
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS) * 1e3
     source, replaces = _SOURCES[name]
     return {
         "name": name,
@@ -291,7 +318,7 @@ def _record(name, path, shape, ms, plain_ms, library_ms, flops, bytes_moved, err
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
-        "at": "[B, T, H, D] = [%d, %d, %d, %d] bfloat16 causal" % shape,
+        "at": "[B, T, H, D] = [%d, %d, %d, %d] %s causal" % (*shape, dtype),
         "gflop": flops / 1e9,
         "mb": bytes_moved / 1e6,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
@@ -642,6 +669,7 @@ def phase_serve(card: str) -> dict:
           f"decode {res['decode_tok_per_s']:.1f} tok/s, wall {wall:.2f} s, "
           f"flash launches {launches} = {n_layer} x {len(reqs)}, KV leak 0 — {card}", flush=True)
     print("[serve] " + json.dumps(res), flush=True)
+    res["tokens"] = outs  # for phase 16's comparison; not printed
     return res
 
 
@@ -1483,6 +1511,349 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# The serve control plane: serve.run(llm.build_app(cfg)) behind the HTTP proxy,
+# the replica on the card
+# ----------------------------------------------------------------------
+# the static batch: a prompt near max_seq_len with few tokens beside short
+# prompts with many, so the lockstep decode runs its lane past max_seq_len
+STATIC_LENS = (1000, 20, 300, 100)
+STATIC_MAX_TOKENS = (8, 64, 24, 40)
+
+
+class _ReplicaLaunches:
+    """B1's launch count in the replica's own process (counts are per
+    process), reset and read through actor calls on the replica."""
+
+    def reset_launches(self) -> int:
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_attention_fwd.launches = 0
+        return 0
+
+    def launches(self) -> int:
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        return fa.flash_attention_fwd.launches
+
+
+class CountingLLMServer(_ReplicaLaunches, LLMServer):
+    """LLMServer plus its replica's B1 count (a class of __main__, so the
+    runtime pickles it by value: the controller imports only the port's
+    deployment module, which loads no torch)."""
+
+
+class CountingStaticServer(_ReplicaLaunches, StaticBatchLLMServer):
+    """StaticBatchLLMServer plus its replica's B1 count."""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_route(port: int, prefix: str, timeout_s: float = 60.0) -> None:
+    import urllib.request
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/-/routes", timeout=5) as r:
+                if prefix in json.loads(r.read()):
+                    return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"the proxy never routed {prefix}")
+
+
+def _http_call(port: int, path: str, payload: dict, stream: bool) -> dict:
+    """One request through the proxy with the stdlib client.  A stream
+    (x-serve-stream: 1) is read line by line as the chunks arrive: its
+    token ids, its last event, and the seconds to the first token."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        headers = {"Content-Type": "application/json"}
+        if stream:
+            headers["x-serve-stream"] = "1"
+        conn.request("POST", path, body=json.dumps(payload), headers=headers)
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"POST {path}: HTTP {resp.status} {resp.read()[:300]!r}")
+        if not stream:
+            out = json.loads(resp.read())
+            out["t_end"] = time.perf_counter()
+            return out
+        tokens, last, ttft = [], None, None
+        for line in resp:
+            if not line.strip():
+                continue
+            ev = json.loads(line)
+            if "token" in ev:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                tokens.append(ev["token"])
+            elif ev.get("done"):
+                last = ev
+        if last is None:
+            raise AssertionError(f"POST {path}: the stream ended without its summary event")
+        return {"tokens": tokens, "finish_reason": last["finish_reason"],
+                "num_tokens": last["num_tokens"], "ttft_s": ttft, "t_end": time.perf_counter()}
+    finally:
+        conn.close()
+
+
+def _http_concurrent(port: int, path: str, payloads: list, stream: bool) -> list:
+    """All payloads at once, one client thread and connection each."""
+    import threading
+
+    results, errors = [None] * len(payloads), []
+
+    def run(i):
+        try:
+            results[i] = _http_call(port, path, payloads[i], stream)
+        except Exception as e:  # noqa: BLE001 — raised below, with the others
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(r is None for r in results):
+        raise AssertionError(f"HTTP requests to {path} failed: {errors or 'timed out'}")
+    return results
+
+
+def _serve_actor_pids() -> dict:
+    """name -> pid of every live actor of the serve namespace, from the
+    GCS's actor table."""
+    from ray_tpu_torch._private.worker import global_worker_maybe
+
+    actors = global_worker_maybe().gcs_client.call("list_actors", None)
+    return {a["name"]: a["pid"] for a in actors
+            if a["namespace"] == "serve" and a["state"] == "ALIVE" and a["name"]}
+
+
+def _maps_lib(pid: int, lib: str) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return lib in f.read()
+
+
+def _build_app(cfg: LLMConfig, cls=None, *args):
+    """``llm.build_app(cfg)`` on a route named after ``cfg``.  With ``cls``,
+    the same deployment (build_app's settings, and the GPU its replica
+    leases for an engine on the card) serves ``cls`` bound to ``args``
+    instead of LLMServer: a counting subclass the card's run reads."""
+    app = rt_llm.build_app(cfg, route_prefix=f"/{cfg.name}")
+    if cls is None:
+        return app
+    return rt_serve.Deployment(cls, app.deployment._config).bind(*args)
+
+
+def phase_serve_plane(card: str, engine_serve: dict) -> dict:
+    """Phase 6's traffic through serve.run(llm.build_app(cfg)) and the HTTP proxy.
+    ``engine_serve`` is phase 6's result: its bf16 tokens and metrics."""
+    t0 = time.perf_counter()
+    cfg_bf16, prompts, max_tokens = _serve_mix()
+    cfg_bf16 = dataclasses.replace(cfg_bf16, name="llm_bf16")
+    cfg_f32 = dataclasses.replace(cfg_bf16, dtype="float32", name="llm_f32")
+    n_layer = cfg_bf16.model_config().n_layer
+    mix = [{"prompt": p, "max_tokens": m} for p, m in zip(prompts, max_tokens)]
+    rng = np.random.default_rng(5)
+    static_specs = [{"prompt": rng.integers(0, PROMPT_VOCAB, size=n).tolist(), "max_tokens": m}
+                    for n, m in zip(STATIC_LENS, STATIC_MAX_TOKENS)]
+    static_cfg = dataclasses.replace(cfg_f32, max_batch_size=len(static_specs),
+                                     name="llm_static")
+
+    # the references, in this process on this card: the engine over the f32 mix,
+    # the static server over its batch
+    async def engine_run():
+        eng = LLMEngine(cfg_f32)
+        reqs = [await eng.add_request(p, max_tokens=m) for p, m in zip(prompts, max_tokens)]
+        outs = await asyncio.gather(*[_drain(r) for r in reqs])
+        await eng.stop()
+        return outs
+
+    want_f32 = asyncio.run(engine_run())
+    want_static = StaticBatchLLMServer(static_cfg)._run_batch(static_specs)
+    torch.cuda.empty_cache()  # the replicas below get the card
+
+    port = _free_port()
+    ctx = ray_tpu_torch.init(num_cpus=4)
+    res = {"session_dir": ctx["session_dir"], "card": card, "http_port": port}
+    try:
+        rt_serve.start(http_port=port)
+
+        # (a) f32 greedy parity over HTTP: 16 concurrent chunked streams
+        rt_serve.run(_build_app(cfg_f32), name="llm_f32_app", http_port=port)
+        _wait_route(port, "/llm_f32")
+        res["gpu_free_with_replica"] = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        if res["gpu_free_with_replica"] != 0.0:
+            raise AssertionError(f"the replica did not lease the card's GPU: "
+                                 f"{ray_tpu_torch.available_resources()}")
+        got = _http_concurrent(port, "/llm_f32", mix, stream=True)
+        bad = [i for i, (g, w) in enumerate(zip(got, want_f32)) if g["tokens"] != w]
+        print(f"[serve plane] f32 GPT-2 small, serve.run(llm.build_app(cfg)) (cluster "
+              f"GPU left {res['gpu_free_with_replica']}): {len(mix)} concurrent HTTP streams, "
+              f"{sum(len(g['tokens']) for g in got)} greedy tokens, requests differing from the "
+              f"LLMEngine in this process: {bad} — {card}", flush=True)
+        if bad:
+            raise AssertionError(f"f32 HTTP tokens differ from this process's engine at {bad}")
+        rt_serve.delete("llm_f32")
+
+        # (a) the static-batch server: one batch of 4, its long lane past
+        # max_seq_len, against this process's static server
+        shandle = rt_serve.run(
+            _build_app(static_cfg, CountingStaticServer, static_cfg.to_dict(), 5.0),
+            name="llm_static_app", http_port=port)
+        _wait_route(port, "/llm_static")
+        shandle.reset_launches.remote().result(timeout=120)
+        sgot = _http_concurrent(port, "/llm_static", static_specs, stream=False)
+        res["static_launches"] = shandle.launches.remote().result(timeout=120)
+        sbad = [i for i, (g, w) in enumerate(zip(sgot, want_static))
+                if g["tokens"] != w["tokens"] or g["num_tokens"] != STATIC_MAX_TOKENS[i]]
+        print(f"[serve plane] StaticBatchLLMServer f32, one batch of prompts {STATIC_LENS} x "
+              f"max_tokens {STATIC_MAX_TOKENS} over HTTP (lane 0 decodes to position "
+              f"{STATIC_LENS[0] + max(STATIC_MAX_TOKENS) - 1} > max_seq_len "
+              f"{static_cfg.model_config().max_seq_len}): lanes differing from this process's "
+              f"static server {sbad}; B1 launches in the replica {res['static_launches']} "
+              f"(want {n_layer}: one batched prefill) — {card}", flush=True)
+        if sbad or res["static_launches"] != n_layer:
+            raise AssertionError(f"static batch: lanes {sbad} differ, or B1 launched "
+                                 f"{res['static_launches']} times (want {n_layer})")
+        rt_serve.delete("llm_static")
+
+        # (b) the bf16 serving mix over HTTP
+        handle = rt_serve.run(_build_app(cfg_bf16, CountingLLMServer, cfg_bf16.to_dict()),
+                              name="llm_bf16_app", http_port=port)
+        _wait_route(port, "/llm_bf16")
+        _http_call(port, "/llm_bf16", {"prompt": [1, 2, 3], "max_tokens": 2}, stream=True)
+        handle.reset_launches.remote().result(timeout=120)
+        t_start = time.perf_counter()
+        got = _http_concurrent(port, "/llm_bf16", mix, stream=True)
+        wall = max(g["t_end"] for g in got) - t_start
+        launches = handle.launches.remote().result(timeout=120)
+        for i, g in enumerate(got):
+            if g["finish_reason"] != "length" or len(g["tokens"]) != max_tokens[i]:
+                raise AssertionError(f"bf16 request {i} ended {g['finish_reason']} after "
+                                     f"{len(g['tokens'])}/{max_tokens[i]} tokens")
+        deadline = time.monotonic() + 30
+        stats = handle.stats.remote().result(timeout=120)
+        while time.monotonic() < deadline and (stats["kv_leak_report"]["blocks_in_use"]
+                                               or stats["kv_leak_report"]["live_sequences"]):
+            time.sleep(0.2)
+            stats = handle.stats.remote().result(timeout=120)
+        leak = stats["kv_leak_report"]
+        ttft = [g["ttft_s"] for g in got]
+        total = sum(len(g["tokens"]) for g in got)
+        same = sum(a == b for g, w in zip(got, engine_serve["tokens"])
+                   for a, b in zip(g["tokens"], w))
+        res.update({
+            "requests": len(got), "launches": launches, "kv_leak_report": leak,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p95_s": float(np.percentile(ttft, 95)),
+            "decode_tok_per_s": (total - len(got)) / wall, "wall_s": wall,
+            "engine_ttft_p50_s": engine_serve["ttft_p50_s"],
+            "engine_ttft_p95_s": engine_serve["ttft_p95_s"],
+            "engine_decode_tok_per_s": engine_serve["decode_tok_per_s"],
+            "engine_wall_s": engine_serve["wall_s"],
+            "bf16_tokens_equal_to_phase6": same / total,
+        })
+        print(f"[serve plane] bf16 GPT-2 small over HTTP, {len(got)} concurrent streams: "
+              f"client TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms p95 "
+              f"{res['ttft_p95_s'] * 1e3:.1f} ms, decode {res['decode_tok_per_s']:.1f} tok/s, "
+              f"wall {wall:.2f} s; phase 6's engine in this run: TTFT p50 "
+              f"{engine_serve['ttft_p50_s'] * 1e3:.1f} ms p95 "
+              f"{engine_serve['ttft_p95_s'] * 1e3:.1f} ms, decode "
+              f"{engine_serve['decode_tok_per_s']:.1f} tok/s, wall {engine_serve['wall_s']:.2f} s; "
+              f"B1 launches in the replica {launches} (want {n_layer} x {len(got)}); KV blocks "
+              f"in use {leak['blocks_in_use']}, live sequences {leak['live_sequences']}; share "
+              f"of tokens equal to phase 6's {same / total:.4f} (want 1) — {card}", flush=True)
+        if launches != n_layer * len(got):
+            raise AssertionError(f"B1 launched {launches} times in the replica, "
+                                 f"want {n_layer} x {len(got)}")
+        if leak["blocks_in_use"] or leak["live_sequences"]:
+            raise AssertionError(f"KV leak in the replica after the mix drained: {leak}")
+        # the engine's rows do not depend on the other lanes (fixed shapes,
+        # one prefill a request), so a different arrival order over HTTP
+        # leaves every bf16 token as phase 6 made it on this card
+        if same != total:
+            raise AssertionError(f"bf16 tokens over HTTP differ from phase 6's: "
+                                 f"{same}/{total} equal")
+
+        # (c) process boundaries: only the replica maps libcuda;
+        # the controller and the proxy never load torch (the maps decide)
+        pids = _serve_actor_pids()
+        replica = [pid for name, pid in pids.items()
+                   if name.startswith("SERVE_REPLICA::llm_bf16#")]
+        control = {name: pids.get(name) for name in ("SERVE_CONTROLLER", "SERVE_PROXY")}
+        res["processes"] = {
+            name: {"pid": pid, "libcuda": _maps_lib(pid, "libcuda"),
+                   "libtorch": _maps_lib(pid, "libtorch")}
+            for name, pid in [*control.items(), *(("replica", p) for p in replica)] if pid
+        }
+        print(f"[serve plane] processes: {json.dumps(res['processes'])}", flush=True)
+        if (len(replica) != 1 or None in control.values()
+                or not res["processes"]["replica"]["libcuda"]
+                or any(res["processes"][n]["libcuda"] or res["processes"][n]["libtorch"]
+                       for n in control)):
+            raise AssertionError(f"process boundaries broken: {res['processes']}")
+    finally:
+        try:
+            rt_serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 20
+    left = _port_processes()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left = _port_processes()
+    res["processes_left"] = left
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[serve plane] serve.shutdown(), shutdown(): port processes left {sorted(left)}; "
+          f"phase took {res['seconds']:.1f} s", flush=True)
+    if left:
+        raise AssertionError(f"port processes still running after shutdown(): {left}")
+    print("[serve plane] " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_static_kernel(card: str, launches: int) -> dict:
+    """B1 at the static batch's prefill, [4, T_max, 12, 64] float32 with
+    q/k/v as views of the fused projection: held against its plain
+    version, then timed beside it, its bound and one library call."""
+    B, T, H, D = len(STATIC_LENS), max(STATIC_LENS), 12, 64
+    q, k, v = _qkv(T, H, D, torch.float32, True, seed=123, B=B)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
+    e_o = (out - ref_out).abs().max().item()
+    e_l = (lse - ref_lse).abs().max().item()
+    # f32: both sides compute in f32 and differ only in summation order
+    print(f"[static kernel] flash_fwd [{B}, {T}, {H}, {D}] float32 fused: max|dO|={e_o:.3e} "
+          f"max|dLSE|={e_l:.3e} (tol 1e-4)", flush=True)
+    if not (e_o <= 1e-4 and e_l <= 1e-4):
+        raise AssertionError(f"flash_fwd disagrees with its plain version at [{B}, {T}] f32")
+    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    plain_ms = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v), reps=5, rounds=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    rec = _record("flash_attention_fwd", "serve plane static batch", (B, T, H, D), ms,
+                  plain_ms, library_ms, *_fwd_work(B, T, H, D, elt=4), e_o,
+                  dtype="float32", max_abs_err_lse=e_l)
+    rec["launches"] = launches
+    _print_record("static kernel", rec, card)
+    return rec
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1511,7 +1882,10 @@ def main() -> int:
                             runtime["trainer"]["launches"]))
     for rec in train_recs:
         rec["in_framework_launches"] = in_framework[rec["name"]]
-    print(json.dumps({"kernels": [fwd_rec, *train_recs, *llama_recs]}), flush=True)
+    plane = phase_serve_plane(card, serve)
+    fwd_rec["in_replica_launches"] = plane["launches"]
+    static_rec = phase_static_kernel(card, plane["static_launches"])
+    print(json.dumps({"kernels": [fwd_rec, static_rec, *train_recs, *llama_recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

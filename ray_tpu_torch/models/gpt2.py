@@ -266,7 +266,12 @@ def decode_forward(model: GPT2, tok: torch.Tensor, pos: torch.Tensor, k_ctx: tor
     cfg = model.cfg
     B = tok.shape[0]
     scale = 1.0 / math.sqrt(cfg.d_head)
-    x = model.wte(tok) + model.wpe(pos)
+    # The reference's position lookup is a JAX gather, which clamps an
+    # index past the table to its last row (``ray_tpu/models/gpt2.py``
+    # ``decode_forward``).  The static-batch server's finished lanes keep
+    # decoding in lockstep and may run past max_seq_len, so clamp as the
+    # reference does instead of raising (CPU) or faulting (CUDA).
+    x = model.wte(tok) + model.wpe(pos.clamp(max=cfg.max_seq_len - 1))
     k_news, v_news = [], []
     for i, blk in enumerate(model.blocks()):
         q, k, v = _qkv(blk, x, cfg)  # [B, H, Dh]

@@ -1,13 +1,15 @@
 """LLM serving configuration (port of ``ray_tpu/serve/llm/config.py``):
-the same fields, plus the ``device`` the engine serves on."""
+the same fields, plus the ``device`` the engine serves on.
+
+Imports no torch at module level: the serve controller unpickles a
+deployment's init args (an ``LLMConfig`` dict, the ``LLMServer`` class)
+and must not load torch; the dtype resolves in ``model_config``."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
-
-import torch
 
 
 def tokenize_prompt(prompt: Any, vocab_size: int) -> list:
@@ -20,7 +22,7 @@ def tokenize_prompt(prompt: Any, vocab_size: int) -> list:
     raise TypeError(f"prompt must be str or list[int], got {type(prompt)}")
 
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = ("float32", "bfloat16")
 _PRESETS = ("tiny", "small", "medium", "large")
 
 
@@ -90,6 +92,8 @@ class LLMConfig:
 
     def model_config(self):
         """Resolve the port's GPT2Config preset with the serving dtype."""
+        import torch
+
         from ray_tpu_torch.models.gpt2 import GPT2Config
 
         if self.model not in _PRESETS:
@@ -97,10 +101,9 @@ class LLMConfig:
                 f"unknown model preset {self.model!r} "
                 "(expected tiny | small | medium | large)"
             )
-        dtype = _DTYPES.get(self.dtype)
-        if dtype is None:
+        if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported serving dtype {self.dtype!r}")
-        return getattr(GPT2Config, self.model)(dtype=dtype)
+        return getattr(GPT2Config, self.model)(dtype=getattr(torch, self.dtype))
 
     @property
     def max_context(self) -> int:

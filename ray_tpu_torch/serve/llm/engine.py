@@ -30,8 +30,10 @@ observed TTFT/queue depth degrades batch before standard and never sheds
 interactive.  All of it is inert for anonymous traffic: identity-free
 requests take the FIFO fast path.
 
-Not ported yet (they belong to the runtime): the reference engine's
-telemetry gauges, request spans, jit profiling and chaos fault points.
+Request spans (``serve.request`` -> ``serve.queue`` / ``serve.prefill``
+/ ``serve.decode``) are recorded per request, and the 1 Hz control tick
+exports the telemetry gauges and shed counters.  The reference's jit
+profiling (``instrument_jit``) has no counterpart: torch runs eagerly.
 """
 
 from __future__ import annotations
@@ -91,6 +93,8 @@ class _Request:
     preemptions: int = 0
     folded: int = 0  # tokens already folded into prompt by past preemptions
     t_enqueue: float = 0.0  # last (re)queue time — the starvation clock
+    # span plumbing: (trace_id, root_span_id, parent_span_id or None)
+    trace: tuple = ()
 
 
 class LLMEngine:
@@ -129,7 +133,9 @@ class LLMEngine:
         self._tok_window: Deque[tuple] = collections.deque(maxlen=512)
         self._total_tokens = 0
         self._shed_total = 0
-        self._last_tick = 0.0
+        # shed attribution: {(where, tenant_label): n}, flushed at 1 Hz
+        self._shed_unreported: Dict[tuple, int] = {}
+        self._last_metrics_push = 0.0
         # -- overload armor state --
         self._seq_counter = 0
         # False -> every waiting request is anonymous default-tenant
@@ -138,6 +144,8 @@ class LLMEngine:
         self._preempt_total = 0
         self._events: Deque[Dict[str, Any]] = collections.deque(maxlen=128)
         self._ttft_recent: Deque[float] = collections.deque(maxlen=64)
+        # (wall time, tenant, tokens) for the per-tenant rate gauge
+        self._tenant_tok_window: Deque[tuple] = collections.deque(maxlen=2048)
         self._registered_tenants = (
             set(self.config.tenant_quotas) | set(self.config.tenant_weights)
         )
@@ -245,9 +253,12 @@ class LLMEngine:
         """Clamp a wire-supplied tenant to the bounded metric domain."""
         return tenants_mod.tenant_label(tenant, self._registered_tenants)
 
-    def _shed(self, message: str, retry_after_s: float = 1.0) -> None:
+    def _shed(self, where: str, tenant: str, message: str,
+              retry_after_s: float = 1.0) -> None:
         self._shed_total += 1
-        self._control_tick(force=True)
+        key = (where, self._tenant_label(tenant))
+        self._shed_unreported[key] = self._shed_unreported.get(key, 0) + 1
+        self._push_metrics(force=True)
         raise RequestShedError(message, retry_after_s=retry_after_s)
 
     async def add_request(
@@ -268,12 +279,14 @@ class LLMEngine:
         slo = normalize_slo(slo)
         if self._degrade.should_shed(slo):
             self._shed(
+                "brownout", tenant,
                 f"brownout level {self._degrade.level} sheds {slo}-class "
                 "requests (interactive is never shed)",
                 retry_after_s=2.0,
             )
         if len(self.waiting) >= self.config.max_queue:
             self._shed(
+                "engine", tenant,
                 f"engine queue full ({len(self.waiting)} waiting, "
                 f"bound {self.config.max_queue})",
             )
@@ -305,6 +318,7 @@ class LLMEngine:
             priority=SLO_PRIORITY[slo],
             seq=self._seq_counter,
             t_enqueue=now,
+            trace=self._mint_trace(),
         )
         if tenant != tenants_mod.DEFAULT_TENANT or req.priority != 1:
             self._fair_dirty = True
@@ -369,6 +383,10 @@ class LLMEngine:
             "events": list(self._events),
         }
 
+    def queued_depth(self) -> int:
+        """Autoscaling signal: requests in the engine (waiting + lanes)."""
+        return len(self.waiting) + sum(1 for r in self.slots if r is not None)
+
     # -- step loop -------------------------------------------------------
     async def _run(self):
         loop = asyncio.get_running_loop()
@@ -377,7 +395,7 @@ class LLMEngine:
                 self._reap()
                 await self._join_waiters(loop)
                 if not any(r is not None for r in self.slots):
-                    self._control_tick()
+                    self._push_metrics()
                     if not self.waiting:
                         self._wake.clear()
                         try:
@@ -390,7 +408,7 @@ class LLMEngine:
                         await asyncio.sleep(0.005)
                     continue
                 await self._decode_once(loop)
-                self._control_tick()
+                self._push_metrics()
                 # step boundary: let pending add_request/cancel callbacks run
                 await asyncio.sleep(0)
             except asyncio.CancelledError:
@@ -553,10 +571,20 @@ class LLMEngine:
         resume, prefill replays the folded context and samples the next
         token — under greedy decoding exactly the token the uninterrupted
         run would have produced."""
+        import os
+
+        from ray_tpu_torch._private.chaos import CHAOS
+
         if req.slot >= 0:
             self.slots[req.slot] = None
         req.slot = -1
         self.bm.free(req.request_id)
+        # Chaos fault point: "@serve.preempt.evict:kill:at=N" dies after
+        # the pages are freed but before the requeue — the replica-crash
+        # window the zero-leak drill drives.
+        if CHAOS.active and CHAOS.maybe_kill("serve.preempt.evict"):
+            logger.warning("chaos: killing replica mid-preemption (evict)")
+            os._exit(1)
         req.prompt = list(req.prompt) + req.tokens[req.folded:]
         req.folded = len(req.tokens)
         req.t_enqueue = time.time()
@@ -572,6 +600,15 @@ class LLMEngine:
             "generated": req.generated,
             "preemptions": req.preemptions,
         })
+        try:
+            from ray_tpu_torch._private import telemetry
+
+            telemetry.count_serve_preemption(self.config.name, req.slo)
+        except Exception:  # noqa: BLE001
+            pass
+        if CHAOS.active and CHAOS.maybe_kill("serve.preempt.requeue"):
+            logger.warning("chaos: killing replica mid-preemption (requeue)")
+            os._exit(1)
         self.waiting.append(req)
         self._fair_dirty = True
 
@@ -640,6 +677,8 @@ class LLMEngine:
         req.tokens.append(token)
         req.generated += 1
         self._total_tokens += 1
+        if self._fair_dirty or req.tenant != tenants_mod.DEFAULT_TENANT:
+            self._tenant_tok_window.append((now or time.time(), req.tenant, 1))
         if req.t_first_token == 0.0:
             req.t_first_token = now or time.time()
         req.out.put_nowait(
@@ -662,7 +701,7 @@ class LLMEngine:
 
     def _finish(self, req: _Request, reason: str):
         """Terminal bookkeeping — the ONLY place a request leaves the
-        engine: frees blocks, emits the sentinel, records TTFT."""
+        engine: frees blocks, emits the sentinel, records spans/TTFT."""
         if self._by_id.pop(req.request_id, None) is None:
             return
         self.bm.free(req.request_id)
@@ -670,8 +709,67 @@ class LLMEngine:
         req.t_done = time.time()
         req.finish_step = self.step_count
         req.out.put_nowait(FINISHED)
-        if req.t_first_token:
-            self._ttft_recent.append(req.t_first_token - req.t_submit)
+        self._record_spans(req)
+        self._observe_ttft(req)
+
+    # -- observability ---------------------------------------------------
+    def _mint_trace(self) -> tuple:
+        from ray_tpu_torch.util import tracing
+
+        ctx = tracing.current_context()
+        trace_id = ctx[0] if ctx else uuid.uuid4().hex
+        parent = ctx[1] if ctx else None
+        return (trace_id, uuid.uuid4().hex[:16], parent)
+
+    def _record_spans(self, req: _Request):
+        """serve.request -> {serve.queue, serve.prefill, serve.decode}:
+        the per-request latency decomposition that critical-path analysis
+        surfaces."""
+        try:
+            from ray_tpu_torch.util import tracing
+
+            trace_id, root_id, parent = req.trace
+            end = req.t_done or time.time()
+            tracing.record_span(
+                "serve.request", req.t_submit, end,
+                {
+                    "request_id": req.request_id,
+                    "deployment": self.config.name,
+                    "tokens": req.generated,
+                    "finish_reason": req.finish_reason,
+                },
+                context=(trace_id, root_id, parent),
+            )
+            t_join = req.t_join or end
+            tracing.record_span(
+                "serve.queue", req.t_submit, t_join, None,
+                context=(trace_id, uuid.uuid4().hex[:16], root_id),
+            )
+            if req.t_join:
+                t_first = req.t_first_token or end
+                tracing.record_span(
+                    "serve.prefill", req.t_join, t_first, None,
+                    context=(trace_id, uuid.uuid4().hex[:16], root_id),
+                )
+                tracing.record_span(
+                    "serve.decode", t_first, end, {"tokens": req.generated},
+                    context=(trace_id, uuid.uuid4().hex[:16], root_id),
+                )
+        except Exception:  # noqa: BLE001 — observability must not fail serving
+            pass
+
+    def _observe_ttft(self, req: _Request):
+        if not req.t_first_token:
+            return
+        self._ttft_recent.append(req.t_first_token - req.t_submit)
+        try:
+            from ray_tpu_torch._private import telemetry
+
+            telemetry.observe_serve_ttft(
+                self.config.name, req.t_first_token - req.t_submit
+            )
+        except Exception:  # noqa: BLE001
+            pass
 
     # -- load signals ----------------------------------------------------
     def _tokens_per_s(self) -> float:
@@ -688,14 +786,14 @@ class LLMEngine:
         vals = sorted(self._ttft_recent)
         return vals[min(len(vals) - 1, int(0.95 * len(vals)))]
 
-    def _control_tick(self, force: bool = False):
+    def _push_metrics(self, force: bool = False):
         """The 1 Hz control tick: drives the brownout ladder (inert when
-        ``slo_ttft_s`` is 0).  The reference exports its telemetry gauges
-        on the same tick (``_push_metrics``); telemetry is not ported yet."""
+        ``slo_ttft_s`` is 0) and exports the serve gauges, the shed
+        counters and the device-memory report."""
         now = time.time()
-        if not force and now - self._last_tick < 1.0:
+        if not force and now - self._last_metrics_push < 1.0:
             return
-        self._last_tick = now
+        self._last_metrics_push = now
         if self._degrade.enabled:
             before = self._degrade.level
             level = self._degrade.tick(self._ttft_p95(), len(self.waiting))
@@ -711,3 +809,41 @@ class LLMEngine:
                     "brownout level %d -> %d (queue=%d)",
                     before, level, len(self.waiting),
                 )
+        try:
+            from ray_tpu_torch._private import telemetry
+
+            name = self.config.name
+            telemetry.set_serve_queue_depth(name, len(self.waiting))
+            telemetry.set_serve_kv_blocks(name, self.bm.blocks_in_use)
+            telemetry.set_serve_tokens_per_s(name, self._tokens_per_s())
+            if self._degrade.enabled:
+                telemetry.set_serve_degradation(name, self._degrade.level)
+            for tenant, rate in self._tenant_tokens_per_s().items():
+                telemetry.set_serve_tenant_tokens_per_s(name, tenant, rate)
+            # Device memory attribution for the paged KV cache (a no-op
+            # without a CUDA context; internally rate-limited).
+            from ray_tpu_torch._private import profiling as profiling_mod
+
+            profiling_mod.report_device_memory()
+            if self._shed_unreported:
+                pending, self._shed_unreported = self._shed_unreported, {}
+                for (where, tenant), n in pending.items():
+                    telemetry.count_serve_shed(name, where, n, tenant=tenant)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _tenant_tokens_per_s(self) -> Dict[str, float]:
+        """Per-tenant token rate over the 5 s window, labels clamped to
+        the registered domain (empty for pure anonymous traffic — the
+        window is only fed once identity appears)."""
+        now = time.time()
+        window = [(t, ten, n) for t, ten, n in self._tenant_tok_window
+                  if now - t <= 5.0]
+        if not window:
+            return {}
+        span = max(now - window[0][0], 1e-3)
+        out: Dict[str, float] = {}
+        for _, ten, n in window:
+            label = self._tenant_label(ten)
+            out[label] = out.get(label, 0.0) + n
+        return {k: v / span for k, v in out.items()}

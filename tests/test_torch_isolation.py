@@ -34,6 +34,20 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 
+# The serve control plane: the controller and the HTTP proxy run these,
+# and never torch (only a replica whose deployment needs it loads torch).
+_SERVE_PLANE_MODULES = (
+    "ray_tpu_torch.serve", "ray_tpu_torch.serve.api", "ray_tpu_torch.serve.handle",
+    "ray_tpu_torch.serve.batching", "ray_tpu_torch.serve.multiplex",
+    "ray_tpu_torch.serve.schema", "ray_tpu_torch.serve._private.common",
+    "ray_tpu_torch.serve._private.long_poll", "ray_tpu_torch.serve._private.request_context",
+    "ray_tpu_torch.serve._private.router", "ray_tpu_torch.serve._private.replica",
+    "ray_tpu_torch.serve._private.controller", "ray_tpu_torch.serve._private.proxy",
+    "ray_tpu_torch.serve._private.local_testing_mode", "ray_tpu_torch.serve.llm",
+    "ray_tpu_torch.serve.llm.overload",
+)
+
+
 def test_port_imports_no_jax_and_no_ray_tpu():
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     proc = subprocess.run(
@@ -51,20 +65,77 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch._private.raylet", "ray_tpu_torch._private.gcs_server",
                 "ray_tpu_torch._private.worker", "ray_tpu_torch._native.arena",
                 "ray_tpu_torch.train.torch.config", "ray_tpu_torch.train.torch.gpt2_loop",
-                "ray_tpu_torch.util.collective.cpu_group"):
+                "ray_tpu_torch.util.collective.cpu_group",
+                *_SERVE_PLANE_MODULES, "ray_tpu_torch.serve.llm.deployment"):
         assert mod in out["imported"]
 
 
-def test_chip_smoke_imports_no_jax_and_no_ray_tpu():
-    path = os.path.join(REPO_ROOT, "chip_smoke.py")
+def _imports_in(path: str) -> list:
+    """Every absolute module a file imports, at any depth: inside
+    functions and methods too, which importing the module never runs."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     imported = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             imported += [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and not node.level:
             imported.append(node.module or "")
+    return imported
+
+
+def test_port_sources_import_no_jax_and_no_ray_tpu_at_any_depth():
+    """The import scan above sees only what importing a module runs; this
+    reads every source file of the port, so an import inside a function
+    (an entry point's lazy ``from ray_tpu import ...``) is caught too."""
+    bad, n_files = [], 0
+    for root, _dirs, files in os.walk(os.path.join(REPO_ROOT, "ray_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                n_files += 1
+                bad += [(os.path.relpath(path, REPO_ROOT), m)
+                        for m in _imports_in(path) if _forbidden(m)]
+    assert n_files > 90
+    assert bad == []
+
+
+_BUILD_APP = r"""
+import json, sys
+import ray_tpu_torch.serve
+from ray_tpu_torch.serve import llm
+apps = {dev: llm.build_app(llm.LLMConfig(model="tiny", device=dev), route_prefix="/llm")
+        for dev in ("cpu", "cuda")}
+print(json.dumps({
+    "bad": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ray_tpu")),
+    "torch": "torch" in sys.modules,
+    "application": all(isinstance(a, ray_tpu_torch.serve.Application) for a in apps.values()),
+    "deployment": all(isinstance(a.deployment, ray_tpu_torch.serve.Deployment)
+                      for a in apps.values()),
+    "target": [a.deployment._target is llm.LLMServer for a in apps.values()],
+    "actor_options": {d: a.deployment._config.ray_actor_options for d, a in apps.items()},
+}))
+"""
+
+
+def test_build_app_stays_in_the_port():
+    """``llm.build_app`` in a clean process: the Application and its
+    Deployment are the port's, no module of JAX or of the JAX package is
+    loaded, and neither is torch (the controller unpickles what it
+    builds).  A CUDA engine's replica leases one GPU, a CPU one none."""
+    proc = subprocess.run([sys.executable, "-c", _BUILD_APP], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"bad": [], "torch": False, "application": True, "deployment": True,
+                   "target": [True, True],
+                   "actor_options": {"cpu": {}, "cuda": {"num_gpus": 1}}}
+
+
+def test_chip_smoke_imports_no_jax_and_no_ray_tpu():
+    imported = _imports_in(os.path.join(REPO_ROOT, "chip_smoke.py"))
     assert "torch" in imported
     assert any(m.startswith("ray_tpu_torch") for m in imported)
     assert [m for m in imported if _forbidden(m)] == []
@@ -101,6 +172,25 @@ def test_runtime_modules_do_not_import_torch():
                           text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serve_control_plane_imports_no_torch():
+    """A clean process imports the serve package, its control-plane
+    modules and ``serve.llm.overload`` (which the proxy and the request
+    context reach through ``serve.llm``) without torch; the deployment
+    module too, since the controller unpickles ``LLMServer`` and its
+    config.  Asking ``serve.llm`` for the engine is what loads torch."""
+    code = ("import importlib, json, sys\n"
+            f"for m in {_SERVE_PLANE_MODULES!r} + ('ray_tpu_torch.serve.llm.deployment',):\n"
+            "    importlib.import_module(m)\n"
+            "before = sorted(m for m in sys.modules if m.split('.')[0] == 'torch')\n"
+            "from ray_tpu_torch.serve import llm\n"
+            "llm.LLMEngine\n"
+            "print(json.dumps([before, 'torch' in sys.modules]))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[], True]
 
 
 _ACTOR_PROBE = r"""

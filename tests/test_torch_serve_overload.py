@@ -1,21 +1,86 @@
-"""The port's overload armor (ray_tpu_torch/serve/llm/overload.py and
-the engine's fair queue, preemption and brownout) on the CPU: the
-engine-level and pure-math cases of tests/test_serve_overload.py,
-ported.  Preempt-by-recompute must stay token-exact against an
-uninterrupted greedy run, and every storm must balance the KV pool."""
+"""The port's overload armor (ray_tpu_torch/serve/llm/overload.py, the
+engine's fair queue, preemption and brownout, and the proxy's token
+quotas) on the CPU: the cases of tests/test_serve_overload.py, ported.
+Preempt-by-recompute must stay token-exact against an uninterrupted
+greedy run, and every storm must balance the KV pool.  The cluster cases
+run the port's serve plane (no JAX in this file: replicas import it)."""
 
 import asyncio
+import json
+import os
+import socket
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 import torch
 
+import ray_tpu_torch
+from ray_tpu_torch import serve
+from ray_tpu_torch._private import retry
 from ray_tpu_torch.serve.exceptions import RequestShedError
 from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine
 from ray_tpu_torch.serve.llm.engine import FINISHED
-from ray_tpu_torch.serve.llm.overload import DegradationController, normalize_slo
+from ray_tpu_torch.serve.llm.overload import (
+    DegradationController,
+    TenantBuckets,
+    TokenBucket,
+    normalize_slo,
+)
 
 torch.set_num_threads(2)
+
+_CLUSTER_ENV = {
+    # The suite runs many clusters at once, the JAX package's among them:
+    # no 2 GiB shm arena prefault per raylet, and no memory monitor, which
+    # watches the whole machine and would kill this test's workers for
+    # the others' memory.
+    "RAY_TPU_TORCH_arena_prefault_bytes": "0",
+    "RAY_TPU_TORCH_memory_monitor_enabled": "0",
+}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# the JAX package's overload tests bind 18129 on the same host
+PROXY_PORT = _free_port()
+
+
+def _poll(deadline_s: float):
+    """Yield once now, then after each backoff delay of the runtime's POLL
+    policy until ``deadline_s`` has passed: ``for _ in _poll(30): ...``."""
+    bo = retry.POLL.start(deadline_s=deadline_s)
+    yield
+    while (delay := bo.next_delay()) is not None:
+        time.sleep(delay)
+        yield
+
+
+@pytest.fixture(scope="module")
+def ray_cluster():
+    """Module-scoped local cluster of the port (the conftest's fixture of
+    this name starts the JAX package's)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in _CLUSTER_ENV.items():
+            mp.setenv(k, v)
+        ray_tpu_torch.init(num_cpus=4, ignore_reinit_error=True)
+        yield ray_tpu_torch
+        ray_tpu_torch.shutdown()
+
+
+@pytest.fixture(scope="module")
+def serve_cluster(ray_cluster):
+    yield ray_cluster
+    try:
+        serve.shutdown()
+    except Exception:  # noqa: BLE001 — a chaos drill may have torn down
+        pass
 
 
 def _tiny(**kw) -> LLMConfig:
@@ -32,6 +97,92 @@ async def _drain(req):
         if ev is FINISHED:
             return toks
         toks.append(ev["token"])
+
+
+def _wait_route(prefix: str, port: int = PROXY_PORT, timeout: float = 30.0):
+    for _ in _poll(timeout):
+        try:
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/-/routes", timeout=5
+            ) as r:
+                if prefix in json.loads(r.read()):
+                    return
+        except Exception:  # noqa: BLE001
+            pass
+    raise AssertionError(f"route {prefix} never became live")
+
+
+def _post(path: str, payload: dict, headers: dict = None,
+          port: int = PROXY_PORT, timeout: float = 60.0):
+    """(status, body_bytes, response_headers); HTTP errors return their
+    status instead of raising."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+# ----------------------------------------------------------------------
+# pure math: token buckets
+# ----------------------------------------------------------------------
+def test_token_bucket_charge_refund_refill():
+    b = TokenBucket(rate=10, burst=20)
+    assert b.charge(20, now=0.0)          # full burst goes through
+    assert not b.charge(1, now=0.0)       # empty: refused, NOT deducted
+    assert b.level(now=0.0) == 0.0
+    b.refund(5)
+    assert b.charge(5, now=0.0)           # the refund is spendable
+    assert b.charge(10, now=1.0)          # 1s at rate 10 refilled 10
+    assert not b.charge(1, now=1.0)
+    # refill caps at burst, refund caps at burst
+    assert b.level(now=100.0) == 20.0
+    b.refund(10**6)
+    assert b.level(now=100.0) == 20.0
+
+
+def test_token_bucket_retry_after():
+    b = TokenBucket(rate=10, burst=20)
+    assert b.charge(20, now=0.0)
+    # 10-token deficit at 10 tok/s -> 1s (and never below the 1s floor)
+    assert b.retry_after(10, now=0.0) == pytest.approx(1.0)
+    assert b.retry_after(2, now=0.0) == 1.0
+    # a request larger than burst is bounded by the burst deficit
+    assert b.retry_after(10**9, now=0.0) == pytest.approx(2.0)
+    frozen = TokenBucket(rate=0, burst=5)
+    assert frozen.charge(5, now=0.0)
+    assert frozen.retry_after(1, now=0.0) == 60.0
+
+
+def test_tenant_buckets_unregistered_unlimited():
+    tb = TenantBuckets({"metered": {"rate": 5, "burst": 10}})
+    assert set(tb.registered()) == {"metered"}
+    # no quota entry -> always admitted, no retry hint
+    for _ in range(100):
+        assert tb.charge("anon", 10**6, now=0.0) == (True, 0.0)
+    ok, retry = tb.charge("metered", 10, now=0.0)
+    assert ok and retry == 0.0
+    ok, retry = tb.charge("metered", 1, now=0.0)
+    assert not ok and retry >= 1.0
+    tb.refund("metered", 4)
+    assert tb.charge("metered", 4, now=0.0) == (True, 0.0)
+    # refunding an unregistered tenant is a no-op, not an error
+    tb.refund("anon", 50)
+
+
+def test_slo_priority_orders_classes():
+    """The port's overload module carries the reference's slo_priority:
+    interactive > standard > batch, unknown strings fold to standard."""
+    from ray_tpu_torch.serve.llm.overload import SLO_CLASSES, slo_priority
+
+    assert SLO_CLASSES == ("interactive", "standard", "batch")
+    assert slo_priority("interactive") > slo_priority("standard") > slo_priority("batch")
+    assert slo_priority("platinum") == slo_priority("standard") == slo_priority(None)
 
 
 # ----------------------------------------------------------------------
@@ -304,3 +455,310 @@ def test_engine_brownout_sheds_batch_admits_interactive():
     assert len(ir.tokens) == 4
     assert st["degradation_level"] == 3
     assert st["shed_total"] == 2
+
+
+def test_engine_shed_attributes_where_and_tenant():
+    """The engine's shed hook: each shed is counted under (where, tenant
+    label) and flushed to the telemetry counter on the forced control
+    tick, so the pending map is empty right after the raise."""
+    async def main():
+        eng = LLMEngine(_tiny(max_queue=1, tenant_quotas={"acme": {"rate": 1}}))
+        eng._stopped = True  # no step loop: the queue stays full
+        eng.ensure_started()
+        await eng.add_request([1], max_tokens=2, tenant="acme")
+        seen = []
+        orig = eng._push_metrics
+
+        def spy(force=False):
+            seen.append(dict(eng._shed_unreported))
+            orig(force=force)
+
+        eng._push_metrics = spy
+        with pytest.raises(RequestShedError):
+            await eng.add_request([2], max_tokens=2, tenant="acme")
+        with pytest.raises(RequestShedError):
+            await eng.add_request([3], max_tokens=2, tenant="stranger")
+        pending = dict(eng._shed_unreported)
+        st = eng.stats()
+        eng._stopped = False
+        await eng.stop()
+        return seen, pending, st
+
+    seen, pending, st = asyncio.run(main())
+    assert seen == [{("engine", "acme"): 1}, {("engine", "other"): 1}], seen
+    assert pending == {}
+    assert st["shed_total"] == 2
+    assert st["kv_leak_report"]["blocks_in_use"] == 0
+
+
+def test_engine_queued_depth_counts_waiting_and_lanes():
+    async def main():
+        eng = LLMEngine(_tiny(max_batch_size=1))
+        assert eng.queued_depth() == 0
+        reqs = [await eng.add_request([1, 2], max_tokens=20) for _ in range(3)]
+        depth = eng.queued_depth()
+        await asyncio.gather(*[_drain(r) for r in reqs])
+        after = eng.queued_depth()
+        await eng.stop()
+        return depth, after
+
+    depth, after = asyncio.run(main())
+    assert depth == 3 and after == 0
+
+
+def test_engine_records_request_spans():
+    """The engine's per-request spans land in the process span log:
+    serve.request is the root, and queue, prefill and decode hang off it
+    in time order."""
+    from ray_tpu_torch.util import tracing
+
+    tracing.drain_spans()  # isolate
+
+    async def main():
+        eng = LLMEngine(_tiny())
+        req = await eng.add_request([1, 2, 3], max_tokens=4)
+        await _drain(req)
+        await eng.stop()
+        return req
+
+    req = asyncio.run(main())
+    spans = [s for s in tracing.drain_spans() if s["name"].startswith("serve.")]
+    by_name = {s["name"]: s for s in spans}
+    assert set(by_name) == {"serve.request", "serve.queue", "serve.prefill",
+                            "serve.decode"}
+    root = by_name["serve.request"]
+    assert root["attributes"]["tokens"] == 4
+    assert root["attributes"]["request_id"] == req.request_id
+    for name in ("serve.queue", "serve.prefill", "serve.decode"):
+        assert by_name[name]["parent_span_id"] == root["span_id"]
+        assert by_name[name]["trace_id"] == root["trace_id"]
+    assert (by_name["serve.queue"]["end_time"] <= by_name["serve.prefill"]["end_time"]
+            <= by_name["serve.decode"]["end_time"])
+
+
+# ----------------------------------------------------------------------
+# replica: multiplexed model variants with LRU swap
+# ----------------------------------------------------------------------
+def test_multiplex_variant_lru_swap_and_eviction_count():
+    from ray_tpu_torch.serve.llm.deployment import LLMServer
+
+    async def main():
+        srv = LLMServer(_tiny(name="mx").to_dict())
+        e_a = await srv._engine_for({"model_id": "a", "prompt": [1]})
+        e_b = await srv._engine_for({"model_id": "b", "prompt": [1]})
+        assert e_a is not e_b is not srv.engine
+        # cache hit: same id -> same engine, no reload
+        assert await srv._engine_for({"model_id": "a", "prompt": [1]}) is e_a
+        assert srv._mx_evictions == 0
+        # third variant exceeds MAX_MODELS_PER_REPLICA=2 -> LRU (b) out
+        e_c = await srv._engine_for({"model_id": "c", "prompt": [1]})
+        ids = {v.model_id for v in srv._loaded_variants()}
+        assert ids == {"a", "c"} and srv._mx_evictions == 1
+        # the evicted id reloads as a FRESH engine (and evicts again)
+        e_b2 = await srv._engine_for({"model_id": "b", "prompt": [1]})
+        assert e_b2 is not e_b and srv._mx_evictions == 2
+        # empty model_id means the base engine
+        assert await srv._engine_for({"prompt": [1]}) is srv.engine
+        # a variant engine actually serves, with its own derived weights
+        req = await e_c.add_request([1, 2, 3], max_tokens=4)
+        toks = await _drain(req)
+        assert len(toks) == 4
+        stats = srv.stats()
+        assert set(stats["multiplex"]["loaded_model_ids"]) == {"c", "b"}
+        assert stats["multiplex"]["evictions"] == 2
+        await srv.__serve_shutdown__()
+
+    asyncio.run(main())
+
+
+# ----------------------------------------------------------------------
+# cluster: identity threading + proxy quota admission
+# ----------------------------------------------------------------------
+def test_identity_threads_header_and_handle_to_replica(serve_cluster):
+    """tenant + SLO class reach the replica's request context through
+    BOTH front doors: the proxy's x-serve-* headers and the handle's
+    options(tenant=, slo_class=) — across the router's replica call."""
+
+    @serve.deployment(name="whoami", route_prefix="/whoami")
+    class WhoAmI:
+        def __call__(self, payload):
+            return {"tenant": serve.get_request_tenant(),
+                    "slo": serve.get_request_slo()}
+
+    handle = serve.run(WhoAmI.bind(), name="whoami_app", http_port=PROXY_PORT)
+    # handle kwarg path
+    out = handle.options(tenant="acme", slo_class="interactive").remote(
+        {}).result(timeout=60)
+    assert out == {"tenant": "acme", "slo": "interactive"}
+    # no identity -> defaults (and the derived handle didn't stick)
+    out = handle.remote({}).result(timeout=60)
+    assert out == {"tenant": "default", "slo": "standard"}
+    # unknown SLO strings clamp instead of minting labels
+    out = handle.options(tenant="acme", slo_class="platinum").remote(
+        {}).result(timeout=60)
+    assert out["slo"] == "standard"
+    # HTTP header path through the proxy
+    _wait_route("/whoami")
+    status, body, _ = _post("/whoami", {"x": 1},
+                            headers={"x-serve-tenant": "acme",
+                                     "x-serve-slo": "interactive"})
+    assert status == 200 and json.loads(body) == {
+        "tenant": "acme", "slo": "interactive"}
+    # payload fields win over headers
+    status, body, _ = _post("/whoami", {"tenant": "beta", "slo": "batch"},
+                            headers={"x-serve-tenant": "acme"})
+    assert status == 200 and json.loads(body) == {
+        "tenant": "beta", "slo": "batch"}
+    serve.delete("whoami")
+
+
+def test_proxy_tenant_quota_429_attributed_to_hostile_only(serve_cluster):
+    """Over-quota tenants get 429 + Retry-After at the proxy; in-quota
+    tenants are untouched, and the shed counters attribute every quota
+    shed to the hostile tenant only."""
+    from ray_tpu_torch.serve import llm
+
+    cfg = _tiny(
+        name="llm_quota",
+        tenant_quotas={
+            # hostile: one small burst, then effectively frozen
+            "hostile": {"rate": 0.001, "burst": 30},
+            "victim": {"rate": 1e6, "burst": 1e6},
+        },
+    )
+    app = llm.build_app(cfg, route_prefix="/quota")
+    serve.run(app, name="llm_quota_app", http_port=PROXY_PORT)
+    _wait_route("/quota")
+
+    def call(tenant):
+        return _post("/quota", {"prompt": "hi", "max_tokens": 8},
+                     headers={"x-serve-tenant": tenant})
+
+    # hostile: the burst admits ~3 requests (est = 2 prompt bytes + 8),
+    # then the bucket refuses — completion refunds only the unused part
+    codes = [call("hostile")[0] for _ in range(8)]
+    assert 200 in codes, codes
+    rejected = [c for c in codes if c == 429]
+    assert rejected, f"hostile was never throttled: {codes}"
+    status, _, headers = call("hostile")
+    assert status == 429
+    assert int(headers.get("Retry-After", "0")) >= 1
+    # the victim flows freely the whole time
+    for _ in range(5):
+        status, body, _ = call("victim")
+        assert status == 200, (status, body)
+        assert json.loads(body)["num_tokens"] == 8
+    # shed attribution: only the hostile tenant appears
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{PROXY_PORT}/-/stats", timeout=10
+    ) as r:
+        stats = json.loads(r.read())
+    per_tenant = stats.get("shed_tenant", {}).get("llm_quota", {})
+    assert per_tenant.get("hostile", 0) >= len(rejected), stats
+    assert "victim" not in per_tenant, stats
+    serve.delete("llm_quota")
+
+
+# ----------------------------------------------------------------------
+# chaos drill: SIGKILL mid-preemption (own cluster, so it runs last)
+# ----------------------------------------------------------------------
+@pytest.mark.chaos
+def test_chaos_sigkill_mid_preemption_zero_leak():
+    """A seeded SIGKILL lands exactly in the preemption window — after
+    the victim's KV pages are freed, before the requeue.  The replica
+    dies mid-preemption; the controller must replace it, the replacement
+    must serve with ZERO leaked KV blocks, and the plane must not wedge."""
+    env = dict(_CLUSTER_ENV,
+               RAY_TPU_TORCH_testing_chaos_spec="@serve.preempt.evict:kill:at=1",
+               RAY_TPU_TORCH_testing_chaos_seed="7")
+    saved = {k: os.environ.get(k) for k in env}
+    for fn in (serve.shutdown, ray_tpu_torch.shutdown):
+        try:
+            fn()
+        except Exception:  # noqa: BLE001
+            pass
+    os.environ.update(env)
+    from ray_tpu_torch._private.chaos import CHAOS
+
+    CHAOS.reset()
+    try:
+        ray_tpu_torch.init(num_cpus=4)
+        from ray_tpu_torch.serve import llm
+        from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
+        cfg = _tiny(name="llm_psig", max_batch_size=1, preempt_wait_s=0.05,
+                    temperature=0.0,
+                    tenant_weights={"a": 1.0, "b": 1.0})
+        handle = serve.run(llm.build_app(cfg), name="llm_psig_app")
+        controller = ray_tpu_torch.get_actor(CONTROLLER_NAME, "serve")
+        reps0 = ray_tpu_torch.get(controller.get_replicas.remote("llm_psig"))
+        assert len(reps0) == 1
+        rid0 = reps0[0]["replica_id"]
+
+        # occupy the single lane with a long batch-class stream
+        gen = handle.options(stream=True, tenant="a", slo_class="batch")\
+            .generate.remote({"prompt": [1, 2, 3], "max_tokens": 400})
+        it = iter(gen)
+        next(it)  # established
+
+        # an interactive arrival forces the preemption whose evict-side
+        # chaos point kills the replica (os._exit between free + requeue)
+        def poke():
+            try:
+                handle.options(tenant="b", slo_class="interactive").remote(
+                    {"prompt": [5], "max_tokens": 3}
+                ).result(timeout=20)
+            except Exception:  # noqa: BLE001 — died with the replica
+                pass
+
+        threading.Thread(target=poke, daemon=True).start()
+
+        # the kill fired iff the replica id changes
+        reps = []
+        for _ in _poll(90):
+            reps = ray_tpu_torch.get(controller.get_replicas.remote("llm_psig"))
+            if len(reps) == 1 and reps[0]["replica_id"] != rid0:
+                break
+        assert reps and reps[0]["replica_id"] != rid0, (
+            "chaos kill at serve.preempt.evict never fired (no preemption?)"
+        )
+        # the orphaned stream dies with its replica, never wedges
+        try:
+            for _ in it:
+                pass
+        except Exception:  # noqa: BLE001 — expected: replica death
+            pass
+
+        # the replacement serves immediately and its KV pool is clean
+        out = None
+        for _ in _poll(60):
+            try:
+                out = handle.options(tenant="b", slo_class="interactive")\
+                    .remote({"prompt": [9], "max_tokens": 4}).result(timeout=30)
+                break
+            except Exception:  # noqa: BLE001 — raced the dead membership
+                pass
+        assert out is not None and out["num_tokens"] == 4, (
+            "replacement replica never served"
+        )
+        st = None
+        for _ in _poll(30):
+            st = handle.stats.remote().result(timeout=30)
+            if st["kv_blocks_in_use"] == 0 and st["waiting"] == 0:
+                break
+        assert st["kv_blocks_in_use"] == 0, st["kv_leak_report"]
+        rep = st["kv_leak_report"]
+        assert rep["total_allocs"] == rep["total_frees"], rep
+        serve.delete("llm_psig")
+    finally:
+        for fn in (serve.shutdown, ray_tpu_torch.shutdown):
+            try:
+                fn()
+            except Exception:  # noqa: BLE001
+                pass
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        CHAOS.reset()
