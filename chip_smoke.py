@@ -75,8 +75,10 @@ and prints no result line):
                   and timed steps, B1 = B2 = B3 = n_layer launches a step
                   counted inside the worker, its step time printed beside
                   phase 9's raw step; shutdown() leaves no port process.
-16. serve plane — the serve control plane on the card, under its own
-                  ray_tpu_torch.init(num_cpus=4): serve.run of
+16. serve plane — the serve control plane on the card on the routers'
+                  actor-RPC path (serve_channel_dataplane off for its
+                  cluster, and the replica's dataplane serves nothing),
+                  under its own ray_tpu_torch.init(num_cpus=4): serve.run of
                   llm.build_app(cfg), whose replica leases GPU 1.0 for its
                   engine on the card, behind the HTTP proxy (the counting
                   servers below keep build_app's deployment and swap its
@@ -94,9 +96,30 @@ and prints no result line):
                   beside phase 6's; (c) the controller
                   and the proxy map neither libcuda nor libtorch, the
                   replica maps libcuda; (d) serve.shutdown() and
-                  shutdown() leave no port process.  B1 is then held
-                  against its plain version and timed at the static
-                  batch's prefill shape.
+                  shutdown() leave no port process.
+17. dataplane   — phase 16's traffic and checks again under a cluster of
+                  its own with the default configuration, so the routers
+                  reach the replicas over the channel dataplane (ring
+                  channels, tokens streamed back as frames): phase 16's
+                  f32 references, the static batch, and four of the f32
+                  requests through the gRPC proxy (serve.start(grpc_port=
+                  ...)) equal this process's engine; the bf16 mix as in
+                  phase 16, and the replica's dataplane served all 16
+                  streams and every stream item (no request fell back to
+                  RPC); the controller and both proxies map neither
+                  libcuda nor libtorch.  Then a compiled DAG: Prefill (a
+                  num_gpus=1 actor, GPT-2 small f32 on its card, the
+                  attention through B1) returns the last position's
+                  logits [4, vocab] as a CUDA tensor, Argmax (a CPU actor)
+                  the greedy ids, MultiOutputNode([logits, ids]); 8
+                  executions of [4, 1000] prompts through execute_many
+                  equal this process's forward exactly, reach it as CPU
+                  f32 tensors, launch B1 12 x 8 times in Prefill, leave
+                  Argmax without a CUDA context and no ring directory
+                  after teardown().  serve.shutdown() and shutdown()
+                  leave no port process and no ring directory.  B1 is
+                  then held against its plain version and timed at the
+                  static batch's prefill shape.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -1523,12 +1546,19 @@ STATIC_MAX_TOKENS = (8, 64, 24, 40)
 
 class _ReplicaLaunches:
     """B1's launch count in the replica's own process (counts are per
-    process), reset and read through actor calls on the replica."""
+    process), reset and read through actor calls on the replica; and what
+    the replica served: the streams its LLMServer answered by any route,
+    and the calls, streams and stream items its channel dataplane carried
+    (``dataplane.SERVED``)."""
 
     def reset_launches(self) -> int:
         from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.serve._private import dataplane
 
         fa.flash_attention_fwd.launches = 0
+        for key in dataplane.SERVED:
+            dataplane.SERVED[key] = 0
+        self.streams_answered = 0
         return 0
 
     def launches(self) -> int:
@@ -1536,11 +1566,25 @@ class _ReplicaLaunches:
 
         return fa.flash_attention_fwd.launches
 
+    def served(self) -> dict:
+        from ray_tpu_torch.serve._private import dataplane
+
+        return {"streams_answered": getattr(self, "streams_answered", 0),
+                "dataplane": dict(dataplane.SERVED)}
+
 
 class CountingLLMServer(_ReplicaLaunches, LLMServer):
-    """LLMServer plus its replica's B1 count (a class of __main__, so the
-    runtime pickles it by value: the controller imports only the port's
-    deployment module, which loads no torch)."""
+    """LLMServer plus its replica's B1 count and served streams (a class of
+    __main__, so the runtime pickles it by value: the controller imports
+    only the port's deployment module, which loads no torch)."""
+
+    async def __call__(self, payload):
+        import inspect
+
+        out = await super().__call__(payload)
+        if inspect.isasyncgen(out):  # an HTTP stream, whatever carried it here
+            self.streams_answered = getattr(self, "streams_answered", 0) + 1
+        return out
 
 
 class CountingStaticServer(_ReplicaLaunches, StaticBatchLLMServer):
@@ -1657,23 +1701,20 @@ def _build_app(cfg: LLMConfig, cls=None, *args):
     return rt_serve.Deployment(cls, app.deployment._config).bind(*args)
 
 
-def phase_serve_plane(card: str, engine_serve: dict) -> dict:
-    """Phase 6's traffic through serve.run(llm.build_app(cfg)) and the HTTP proxy.
-    ``engine_serve`` is phase 6's result: its bf16 tokens and metrics."""
-    t0 = time.perf_counter()
+def _serve_references() -> dict:
+    """Phase 6's mix and the static batch, with their references made in
+    this process on this card: the f32 engine's tokens over the mix and
+    the static server's over its batch.  Phase 16 makes them, phase 17
+    reuses them."""
     cfg_bf16, prompts, max_tokens = _serve_mix()
     cfg_bf16 = dataclasses.replace(cfg_bf16, name="llm_bf16")
     cfg_f32 = dataclasses.replace(cfg_bf16, dtype="float32", name="llm_f32")
-    n_layer = cfg_bf16.model_config().n_layer
-    mix = [{"prompt": p, "max_tokens": m} for p, m in zip(prompts, max_tokens)]
     rng = np.random.default_rng(5)
     static_specs = [{"prompt": rng.integers(0, PROMPT_VOCAB, size=n).tolist(), "max_tokens": m}
                     for n, m in zip(STATIC_LENS, STATIC_MAX_TOKENS)]
     static_cfg = dataclasses.replace(cfg_f32, max_batch_size=len(static_specs),
                                      name="llm_static")
 
-    # the references, in this process on this card: the engine over the f32 mix,
-    # the static server over its batch
     async def engine_run():
         eng = LLMEngine(cfg_f32)
         reqs = [await eng.add_request(p, max_tokens=m) for p, m in zip(prompts, max_tokens)]
@@ -1681,147 +1722,442 @@ def phase_serve_plane(card: str, engine_serve: dict) -> dict:
         await eng.stop()
         return outs
 
-    want_f32 = asyncio.run(engine_run())
-    want_static = StaticBatchLLMServer(static_cfg)._run_batch(static_specs)
-    torch.cuda.empty_cache()  # the replicas below get the card
+    refs = {
+        "cfg_bf16": cfg_bf16, "cfg_f32": cfg_f32, "static_cfg": static_cfg,
+        "prompts": prompts, "max_tokens": max_tokens, "static_specs": static_specs,
+        "mix": [{"prompt": p, "max_tokens": m} for p, m in zip(prompts, max_tokens)],
+        "n_layer": cfg_bf16.model_config().n_layer,
+        "want_f32": asyncio.run(engine_run()),
+        "want_static": StaticBatchLLMServer(static_cfg)._run_batch(static_specs),
+    }
+    torch.cuda.empty_cache()  # the replicas get the card
+    return refs
 
-    port = _free_port()
-    ctx = ray_tpu_torch.init(num_cpus=4)
-    res = {"session_dir": ctx["session_dir"], "card": card, "http_port": port}
-    try:
-        rt_serve.start(http_port=port)
 
-        # (a) f32 greedy parity over HTTP: 16 concurrent chunked streams
-        rt_serve.run(_build_app(cfg_f32), name="llm_f32_app", http_port=port)
-        _wait_route(port, "/llm_f32")
-        res["gpu_free_with_replica"] = ray_tpu_torch.available_resources().get("GPU", 0.0)
-        if res["gpu_free_with_replica"] != 0.0:
-            raise AssertionError(f"the replica did not lease the card's GPU: "
-                                 f"{ray_tpu_torch.available_resources()}")
-        got = _http_concurrent(port, "/llm_f32", mix, stream=True)
-        bad = [i for i, (g, w) in enumerate(zip(got, want_f32)) if g["tokens"] != w]
-        print(f"[serve plane] f32 GPT-2 small, serve.run(llm.build_app(cfg)) (cluster "
-              f"GPU left {res['gpu_free_with_replica']}): {len(mix)} concurrent HTTP streams, "
-              f"{sum(len(g['tokens']) for g in got)} greedy tokens, requests differing from the "
-              f"LLMEngine in this process: {bad} — {card}", flush=True)
-        if bad:
-            raise AssertionError(f"f32 HTTP tokens differ from this process's engine at {bad}")
-        rt_serve.delete("llm_f32")
+def _serve_http(tag: str, card: str, engine_serve: dict, refs: dict, port: int,
+                while_f32=None, control=("SERVE_CONTROLLER", "SERVE_PROXY")) -> dict:
+    """Phase 6's traffic through serve.run(llm.build_app(cfg)) and the HTTP
+    proxy of a running serve instance: (a) the f32 mix as 16 concurrent
+    chunked streams and one static batch, each against ``refs``; (b) the
+    bf16 mix against phase 6's tokens (``engine_serve``), with the
+    replica's B1 launches, KV pool and served streams read in the
+    replica; (c) which processes map libcuda and libtorch.  ``while_f32``
+    runs while the f32 deployment still serves."""
+    mix, max_tokens, n_layer = refs["mix"], refs["max_tokens"], refs["n_layer"]
+    cfg_bf16, cfg_f32, static_cfg = refs["cfg_bf16"], refs["cfg_f32"], refs["static_cfg"]
+    res = {}
 
-        # (a) the static-batch server: one batch of 4, its long lane past
-        # max_seq_len, against this process's static server
-        shandle = rt_serve.run(
-            _build_app(static_cfg, CountingStaticServer, static_cfg.to_dict(), 5.0),
-            name="llm_static_app", http_port=port)
-        _wait_route(port, "/llm_static")
-        shandle.reset_launches.remote().result(timeout=120)
-        sgot = _http_concurrent(port, "/llm_static", static_specs, stream=False)
-        res["static_launches"] = shandle.launches.remote().result(timeout=120)
-        sbad = [i for i, (g, w) in enumerate(zip(sgot, want_static))
-                if g["tokens"] != w["tokens"] or g["num_tokens"] != STATIC_MAX_TOKENS[i]]
-        print(f"[serve plane] StaticBatchLLMServer f32, one batch of prompts {STATIC_LENS} x "
-              f"max_tokens {STATIC_MAX_TOKENS} over HTTP (lane 0 decodes to position "
-              f"{STATIC_LENS[0] + max(STATIC_MAX_TOKENS) - 1} > max_seq_len "
-              f"{static_cfg.model_config().max_seq_len}): lanes differing from this process's "
-              f"static server {sbad}; B1 launches in the replica {res['static_launches']} "
-              f"(want {n_layer}: one batched prefill) — {card}", flush=True)
-        if sbad or res["static_launches"] != n_layer:
-            raise AssertionError(f"static batch: lanes {sbad} differ, or B1 launched "
-                                 f"{res['static_launches']} times (want {n_layer})")
-        rt_serve.delete("llm_static")
+    # (a) f32 greedy parity over HTTP: 16 concurrent chunked streams
+    rt_serve.run(_build_app(cfg_f32), name="llm_f32_app", http_port=port)
+    _wait_route(port, "/llm_f32")
+    res["gpu_free_with_replica"] = ray_tpu_torch.available_resources().get("GPU", 0.0)
+    if res["gpu_free_with_replica"] != 0.0:
+        raise AssertionError(f"the replica did not lease the card's GPU: "
+                             f"{ray_tpu_torch.available_resources()}")
+    got = _http_concurrent(port, "/llm_f32", mix, stream=True)
+    bad = [i for i, (g, w) in enumerate(zip(got, refs["want_f32"])) if g["tokens"] != w]
+    print(f"[{tag}] f32 GPT-2 small, serve.run(llm.build_app(cfg)) (cluster "
+          f"GPU left {res['gpu_free_with_replica']}): {len(mix)} concurrent HTTP streams, "
+          f"{sum(len(g['tokens']) for g in got)} greedy tokens, requests differing from the "
+          f"LLMEngine in this process: {bad} — {card}", flush=True)
+    if bad:
+        raise AssertionError(f"f32 HTTP tokens differ from this process's engine at {bad}")
+    if while_f32 is not None:
+        res.update(while_f32())
+    rt_serve.delete("llm_f32")
 
-        # (b) the bf16 serving mix over HTTP
-        handle = rt_serve.run(_build_app(cfg_bf16, CountingLLMServer, cfg_bf16.to_dict()),
-                              name="llm_bf16_app", http_port=port)
-        _wait_route(port, "/llm_bf16")
-        _http_call(port, "/llm_bf16", {"prompt": [1, 2, 3], "max_tokens": 2}, stream=True)
-        handle.reset_launches.remote().result(timeout=120)
-        t_start = time.perf_counter()
-        got = _http_concurrent(port, "/llm_bf16", mix, stream=True)
-        wall = max(g["t_end"] for g in got) - t_start
-        launches = handle.launches.remote().result(timeout=120)
-        for i, g in enumerate(got):
-            if g["finish_reason"] != "length" or len(g["tokens"]) != max_tokens[i]:
-                raise AssertionError(f"bf16 request {i} ended {g['finish_reason']} after "
-                                     f"{len(g['tokens'])}/{max_tokens[i]} tokens")
-        deadline = time.monotonic() + 30
+    # (a) the static-batch server: one batch of 4, its long lane past
+    # max_seq_len, against this process's static server
+    static_specs = refs["static_specs"]
+    shandle = rt_serve.run(
+        _build_app(static_cfg, CountingStaticServer, static_cfg.to_dict(), 5.0),
+        name="llm_static_app", http_port=port)
+    _wait_route(port, "/llm_static")
+    shandle.reset_launches.remote().result(timeout=120)
+    sgot = _http_concurrent(port, "/llm_static", static_specs, stream=False)
+    res["static_launches"] = shandle.launches.remote().result(timeout=120)
+    sbad = [i for i, (g, w) in enumerate(zip(sgot, refs["want_static"]))
+            if g["tokens"] != w["tokens"] or g["num_tokens"] != STATIC_MAX_TOKENS[i]]
+    print(f"[{tag}] StaticBatchLLMServer f32, one batch of prompts {STATIC_LENS} x "
+          f"max_tokens {STATIC_MAX_TOKENS} over HTTP (lane 0 decodes to position "
+          f"{STATIC_LENS[0] + max(STATIC_MAX_TOKENS) - 1} > max_seq_len "
+          f"{static_cfg.model_config().max_seq_len}): lanes differing from this process's "
+          f"static server {sbad}; B1 launches in the replica {res['static_launches']} "
+          f"(want {n_layer}: one batched prefill) — {card}", flush=True)
+    if sbad or res["static_launches"] != n_layer:
+        raise AssertionError(f"static batch: lanes {sbad} differ, or B1 launched "
+                             f"{res['static_launches']} times (want {n_layer})")
+    rt_serve.delete("llm_static")
+
+    # (b) the bf16 serving mix over HTTP
+    handle = rt_serve.run(_build_app(cfg_bf16, CountingLLMServer, cfg_bf16.to_dict()),
+                          name="llm_bf16_app", http_port=port)
+    _wait_route(port, "/llm_bf16")
+    _http_call(port, "/llm_bf16", {"prompt": [1, 2, 3], "max_tokens": 2}, stream=True)
+    handle.reset_launches.remote().result(timeout=120)
+    t_start = time.perf_counter()
+    got = _http_concurrent(port, "/llm_bf16", mix, stream=True)
+    wall = max(g["t_end"] for g in got) - t_start
+    launches = handle.launches.remote().result(timeout=120)
+    served = handle.served.remote().result(timeout=120)
+    for i, g in enumerate(got):
+        if g["finish_reason"] != "length" or len(g["tokens"]) != max_tokens[i]:
+            raise AssertionError(f"bf16 request {i} ended {g['finish_reason']} after "
+                                 f"{len(g['tokens'])}/{max_tokens[i]} tokens")
+    deadline = time.monotonic() + 30
+    stats = handle.stats.remote().result(timeout=120)
+    while time.monotonic() < deadline and (stats["kv_leak_report"]["blocks_in_use"]
+                                           or stats["kv_leak_report"]["live_sequences"]):
+        time.sleep(0.2)
         stats = handle.stats.remote().result(timeout=120)
-        while time.monotonic() < deadline and (stats["kv_leak_report"]["blocks_in_use"]
-                                               or stats["kv_leak_report"]["live_sequences"]):
-            time.sleep(0.2)
-            stats = handle.stats.remote().result(timeout=120)
-        leak = stats["kv_leak_report"]
-        ttft = [g["ttft_s"] for g in got]
-        total = sum(len(g["tokens"]) for g in got)
-        same = sum(a == b for g, w in zip(got, engine_serve["tokens"])
-                   for a, b in zip(g["tokens"], w))
-        res.update({
-            "requests": len(got), "launches": launches, "kv_leak_report": leak,
-            "ttft_p50_s": float(np.percentile(ttft, 50)),
-            "ttft_p95_s": float(np.percentile(ttft, 95)),
-            "decode_tok_per_s": (total - len(got)) / wall, "wall_s": wall,
-            "engine_ttft_p50_s": engine_serve["ttft_p50_s"],
-            "engine_ttft_p95_s": engine_serve["ttft_p95_s"],
-            "engine_decode_tok_per_s": engine_serve["decode_tok_per_s"],
-            "engine_wall_s": engine_serve["wall_s"],
-            "bf16_tokens_equal_to_phase6": same / total,
-        })
-        print(f"[serve plane] bf16 GPT-2 small over HTTP, {len(got)} concurrent streams: "
-              f"client TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms p95 "
-              f"{res['ttft_p95_s'] * 1e3:.1f} ms, decode {res['decode_tok_per_s']:.1f} tok/s, "
-              f"wall {wall:.2f} s; phase 6's engine in this run: TTFT p50 "
-              f"{engine_serve['ttft_p50_s'] * 1e3:.1f} ms p95 "
-              f"{engine_serve['ttft_p95_s'] * 1e3:.1f} ms, decode "
-              f"{engine_serve['decode_tok_per_s']:.1f} tok/s, wall {engine_serve['wall_s']:.2f} s; "
-              f"B1 launches in the replica {launches} (want {n_layer} x {len(got)}); KV blocks "
-              f"in use {leak['blocks_in_use']}, live sequences {leak['live_sequences']}; share "
-              f"of tokens equal to phase 6's {same / total:.4f} (want 1) — {card}", flush=True)
-        if launches != n_layer * len(got):
-            raise AssertionError(f"B1 launched {launches} times in the replica, "
-                                 f"want {n_layer} x {len(got)}")
-        if leak["blocks_in_use"] or leak["live_sequences"]:
-            raise AssertionError(f"KV leak in the replica after the mix drained: {leak}")
-        # the engine's rows do not depend on the other lanes (fixed shapes,
-        # one prefill a request), so a different arrival order over HTTP
-        # leaves every bf16 token as phase 6 made it on this card
-        if same != total:
-            raise AssertionError(f"bf16 tokens over HTTP differ from phase 6's: "
-                                 f"{same}/{total} equal")
+    leak = stats["kv_leak_report"]
+    ttft = [g["ttft_s"] for g in got]
+    total = sum(len(g["tokens"]) for g in got)
+    same = sum(a == b for g, w in zip(got, engine_serve["tokens"])
+               for a, b in zip(g["tokens"], w))
+    res.update({
+        "requests": len(got), "launches": launches, "kv_leak_report": leak, "served": served,
+        "tokens": total,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p95_s": float(np.percentile(ttft, 95)),
+        "decode_tok_per_s": (total - len(got)) / wall, "wall_s": wall,
+        "engine_ttft_p50_s": engine_serve["ttft_p50_s"],
+        "engine_ttft_p95_s": engine_serve["ttft_p95_s"],
+        "engine_decode_tok_per_s": engine_serve["decode_tok_per_s"],
+        "engine_wall_s": engine_serve["wall_s"],
+        "bf16_tokens_equal_to_phase6": same / total,
+    })
+    print(f"[{tag}] bf16 GPT-2 small over HTTP, {len(got)} concurrent streams: "
+          f"client TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{res['ttft_p95_s'] * 1e3:.1f} ms, decode {res['decode_tok_per_s']:.1f} tok/s, "
+          f"wall {wall:.2f} s; phase 6's engine in this run: TTFT p50 "
+          f"{engine_serve['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{engine_serve['ttft_p95_s'] * 1e3:.1f} ms, decode "
+          f"{engine_serve['decode_tok_per_s']:.1f} tok/s, wall {engine_serve['wall_s']:.2f} s; "
+          f"B1 launches in the replica {launches} (want {n_layer} x {len(got)}); KV blocks "
+          f"in use {leak['blocks_in_use']}, live sequences {leak['live_sequences']}; share "
+          f"of tokens equal to phase 6's {same / total:.4f} (want 1); served in the replica "
+          f"{json.dumps(served)} — {card}", flush=True)
+    if launches != n_layer * len(got):
+        raise AssertionError(f"B1 launched {launches} times in the replica, "
+                             f"want {n_layer} x {len(got)}")
+    if leak["blocks_in_use"] or leak["live_sequences"]:
+        raise AssertionError(f"KV leak in the replica after the mix drained: {leak}")
+    # the engine's rows do not depend on the other lanes (fixed shapes,
+    # one prefill a request), so a different arrival order over HTTP
+    # leaves every bf16 token as phase 6 made it on this card
+    if same != total:
+        raise AssertionError(f"bf16 tokens over HTTP differ from phase 6's: "
+                             f"{same}/{total} equal")
+    if served["streams_answered"] != len(got):
+        raise AssertionError(f"the replica answered {served['streams_answered']} streams, "
+                             f"want {len(got)}")
 
-        # (c) process boundaries: only the replica maps libcuda;
-        # the controller and the proxy never load torch (the maps decide)
-        pids = _serve_actor_pids()
-        replica = [pid for name, pid in pids.items()
-                   if name.startswith("SERVE_REPLICA::llm_bf16#")]
-        control = {name: pids.get(name) for name in ("SERVE_CONTROLLER", "SERVE_PROXY")}
-        res["processes"] = {
-            name: {"pid": pid, "libcuda": _maps_lib(pid, "libcuda"),
-                   "libtorch": _maps_lib(pid, "libtorch")}
-            for name, pid in [*control.items(), *(("replica", p) for p in replica)] if pid
-        }
-        print(f"[serve plane] processes: {json.dumps(res['processes'])}", flush=True)
-        if (len(replica) != 1 or None in control.values()
-                or not res["processes"]["replica"]["libcuda"]
-                or any(res["processes"][n]["libcuda"] or res["processes"][n]["libtorch"]
-                       for n in control)):
-            raise AssertionError(f"process boundaries broken: {res['processes']}")
+    # (c) process boundaries: only the replica maps libcuda;
+    # the control processes never load torch (the maps decide)
+    pids = _serve_actor_pids()
+    replica = [pid for name, pid in pids.items()
+               if name.startswith("SERVE_REPLICA::llm_bf16#")]
+    control = {name: pids.get(name) for name in control}
+    res["processes"] = {
+        name: {"pid": pid, "libcuda": _maps_lib(pid, "libcuda"),
+               "libtorch": _maps_lib(pid, "libtorch")}
+        for name, pid in [*control.items(), *(("replica", p) for p in replica)] if pid
+    }
+    print(f"[{tag}] processes: {json.dumps(res['processes'])}", flush=True)
+    if (len(replica) != 1 or None in control.values()
+            or not res["processes"]["replica"]["libcuda"]
+            or any(res["processes"][n]["libcuda"] or res["processes"][n]["libtorch"]
+                   for n in control)):
+        raise AssertionError(f"process boundaries broken: {res['processes']}")
+    return res
+
+
+_RING_PREFIXES = ("ray_tpu_torch_serve_", "ray_tpu_torch_dag_")
+
+
+def _ring_dirs() -> list:
+    """The port's channel ring directories left under the ring base."""
+    from ray_tpu_torch.experimental.channel import ring_base_dir
+
+    base = ring_base_dir()
+    return sorted(n for n in os.listdir(base) if n.startswith(_RING_PREFIXES))
+
+
+def _shut_down(tag: str, res: dict, t0: float) -> None:
+    """After serve.shutdown() and shutdown(): no port process is left (and
+    no ring directory of the port's channels)."""
+    deadline = time.monotonic() + 20
+    left, rings = _port_processes(), _ring_dirs()
+    while (left or rings) and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left, rings = _port_processes(), _ring_dirs()
+    res["processes_left"], res["ring_dirs_left"] = left, rings
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{tag}] serve.shutdown(), shutdown(): port processes left {sorted(left)}, "
+          f"ring directories left {rings}; phase took {res['seconds']:.1f} s", flush=True)
+    if left or rings:
+        raise AssertionError(f"left after shutdown(): processes {left}, ring dirs {rings}")
+
+
+_DATAPLANE_ENV = "RAY_TPU_TORCH_serve_channel_dataplane"
+
+
+def phase_serve_plane(card: str, engine_serve: dict) -> dict:
+    """Phase 6's traffic through serve.run(llm.build_app(cfg)) and the HTTP
+    proxy on the routers' actor-RPC path: ``serve_channel_dataplane`` is
+    off for this cluster (its processes inherit the setting), and the
+    replica's dataplane serves nothing.  ``engine_serve`` is phase 6's
+    result: its bf16 tokens and metrics."""
+    t0 = time.perf_counter()
+    refs = _serve_references()
+    port = _free_port()
+    saved = os.environ.get(_DATAPLANE_ENV)
+    os.environ[_DATAPLANE_ENV] = "0"
+    try:
+        ctx = ray_tpu_torch.init(num_cpus=4)
+        res = {"session_dir": ctx["session_dir"], "card": card, "http_port": port}
+        try:
+            rt_serve.start(http_port=port)
+            res.update(_serve_http("serve plane", card, engine_serve, refs, port))
+        finally:
+            try:
+                rt_serve.shutdown()
+            finally:
+                ray_tpu_torch.shutdown()
+    finally:
+        if saved is None:
+            os.environ.pop(_DATAPLANE_ENV, None)
+        else:
+            os.environ[_DATAPLANE_ENV] = saved
+    dp = res["served"]["dataplane"]
+    print(f"[serve plane] transport: {_DATAPLANE_ENV}=0, the replica's dataplane served "
+          f"{json.dumps(dp)} (want all 0: every request took actor RPC)", flush=True)
+    if any(dp.values()):
+        raise AssertionError(f"the RPC phase's replica served over its dataplane: {dp}")
+    _shut_down("serve plane", res, t0)
+    print("[serve plane] " + json.dumps(res), flush=True)
+    res["refs"] = refs  # for phase 17; not printed
+    return res
+
+
+# the compiled DAG's input: [4, 1000] prompt tokens, 8 executions
+DAG_B, DAG_T, DAG_EXECUTIONS = 4, 1000, 8
+
+
+class Prefill:
+    """The DAG's GPU stage: GPT-2 small in float32 on its card, the
+    forward over the prompts with the attention through B1, and the
+    last position's logits returned as a CUDA tensor."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.train.torch.gpt2_loop import worker_device
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # the op loop runs in a thread of its own: the card is named, not
+        # taken from the thread's current device
+        self.device = worker_device("cuda", 0)
+        cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+        self.model = gpt2.init_model(cfg, torch.Generator().manual_seed(seed),
+                                     device="cpu").to(self.device).eval()
+
+    def forward(self, tokens):
+        import torch
+
+        with torch.inference_mode():
+            # a copy of the last position: the [4, T, vocab] logits go
+            return self.model(torch.from_numpy(tokens).to(self.device))[:, -1].contiguous()
+
+    def reset_launches(self) -> int:
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_attention_fwd.launches = 0
+        return 0
+
+    def launches(self) -> int:
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        return fa.flash_attention_fwd.launches
+
+
+class Argmax:
+    """The DAG's CPU stage: the greedy ids of the logits it receives."""
+
+    def pick(self, logits):
+        return logits.argmax(-1).tolist()
+
+    def cuda_state(self) -> dict:
+        """Whether torch made a CUDA context here; and, for the record,
+        whether the driver library is mapped (torch's CUDA build loads it
+        to ask for the device count without making a context)."""
+        import os
+
+        import torch
+
+        with open(f"/proc/{os.getpid()}/maps") as f:
+            maps = f.read()
+        return {"cuda_initialized": torch.cuda.is_initialized(), "libcuda": "libcuda" in maps}
+
+
+def _dag_gpu_stage(card: str) -> dict:
+    """(c) A compiled DAG whose first stage is a num_gpus=1 actor running
+    GPT-2 small's f32 forward through B1, and whose second is a CPU actor
+    taking the argmax: 8 executions through execute_many, each held to
+    this process's forward on the same card and weights, exactly."""
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode
+
+    seed = 0
+    batches = [np.random.default_rng(100 + i).integers(0, PROMPT_VOCAB, size=(DAG_B, DAG_T))
+               for i in range(DAG_EXECUTIONS)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+    model = gpt2.init_model(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    model = model.to("cuda").eval()
+    fa.flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        want = [model(torch.from_numpy(b).to("cuda"))[:, -1].cpu() for b in batches]
+    driver_launches = fa.flash_attention_fwd.launches
+    del model
+    torch.cuda.empty_cache()
+
+    # max_concurrency 2: the resident op loop holds one thread, the
+    # launch-count and CUDA-state calls run beside it
+    prefill_node = ray_tpu_torch.remote(num_gpus=1, max_concurrency=2)(Prefill).bind(seed)
+    argmax_node = ray_tpu_torch.remote(num_cpus=1, max_concurrency=2)(Argmax).bind()
+    with InputNode() as inp:
+        logits = prefill_node.forward.bind(inp)
+        ids = argmax_node.pick.bind(logits)
+        dag = MultiOutputNode([logits, ids])
+    t0 = time.perf_counter()
+    # a batched frame carries 8 executions' logits ([4, 50304] f32 each)
+    compiled = dag.experimental_compile(buffer_size_bytes=64 * 1024 * 1024,
+                                        max_inflight=DAG_EXECUTIONS)
+    res = {}
+    try:
+        if not compiled._channels_on:
+            raise AssertionError("the compiled DAG is not on its channels")
+        prefill = compiled._ctx["actors"][prefill_node._stable_uuid]
+        argmax = compiled._ctx["actors"][argmax_node._stable_uuid]
+        # set-up: one execution warms the card's libraries in Prefill and
+        # imports torch in Argmax (to unpickle the tensor)
+        ray_tpu_torch.get(compiled.execute(batches[0]), timeout=600)
+        ray_tpu_torch.get(prefill.reset_launches.remote(), timeout=300)
+        t_run = time.perf_counter()
+        refs = compiled.execute_many(batches)
+        outs = [ray_tpu_torch.get(r, timeout=600) for r in refs]
+        res["run_s"] = time.perf_counter() - t_run
+        res["launches"] = ray_tpu_torch.get(prefill.launches.remote(), timeout=60)
+        res["argmax_cuda"] = ray_tpu_torch.get(argmax.cuda_state.remote(), timeout=60)
+        res["kinds"] = sorted({d["kind"] for d in compiled._descs.values()})
+        dtypes = sorted({f"{o[0].device.type}:{o[0].dtype}" for o in outs})
+        bad = [i for i, (o, w) in enumerate(zip(outs, want))
+               if not (isinstance(o[0], torch.Tensor) and o[0].device.type == "cpu"
+                       and o[0].dtype == torch.float32 and torch.equal(o[0], w)
+                       and o[1] == w.argmax(-1).tolist())]
+        err = max((o[0].double() - w.double()).abs().max().item() for o, w in zip(outs, want))
+    finally:
+        compiled.teardown()
+    res.update({"executions": DAG_EXECUTIONS, "bad": bad, "max_abs_diff": err,
+                "logits": dtypes, "driver_launches": driver_launches,
+                "seconds": time.perf_counter() - t0})
+    deadline = time.monotonic() + 20
+    rings = [n for n in _ring_dirs() if n.startswith("ray_tpu_torch_dag_")]
+    while rings and time.monotonic() < deadline:
+        time.sleep(0.2)
+        rings = [n for n in _ring_dirs() if n.startswith("ray_tpu_torch_dag_")]
+    res["dag_ring_dirs_left"] = rings
+    want_launches = cfg.n_layer * DAG_EXECUTIONS
+    print(f"[dataplane] compiled DAG, Prefill (num_gpus=1, GPT-2 small f32 on the card) -> "
+          f"Argmax (CPU), MultiOutputNode([logits, ids]) over {res['kinds']} channels: "
+          f"{DAG_EXECUTIONS} executions of [{DAG_B}, {DAG_T}] through execute_many in "
+          f"{res['run_s']:.2f} s after one warm-up execution; logits reached the driver as {dtypes}, executions "
+          f"differing from this process's forward {bad} (max |diff| {err:.3e}, want 0); "
+          f"B1 launches in Prefill {res['launches']} (want {want_launches}); Argmax "
+          f"{json.dumps(res['argmax_cuda'])}; dag ring dirs after teardown() {rings} — {card}",
+          flush=True)
+    if bad or err != 0.0 or dtypes != ["cpu:torch.float32"]:
+        raise AssertionError(f"DAG logits differ from the driver's forward: {bad}, {err}")
+    if res["launches"] != want_launches or driver_launches != want_launches:
+        raise AssertionError(f"B1 launched {res['launches']} times in Prefill (driver "
+                             f"{driver_launches}), want {want_launches}")
+    if res["argmax_cuda"]["cuda_initialized"]:
+        raise AssertionError(f"the CPU stage made a CUDA context: {res['argmax_cuda']}")
+    if rings:
+        raise AssertionError(f"ring directories left after teardown(): {rings}")
+    return res
+
+
+GRPC_MIX = (0, 5, 10, 15)  # which of the mix's requests go over gRPC
+
+
+def _grpc_requests(card: str, refs: dict, grpc_port: int) -> dict:
+    """(d) Four of the mix's f32 requests through the gRPC proxy's generic
+    route to the f32 deployment, each equal to this process's engine."""
+    import grpc
+
+    channel = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+    call = channel.unary_unary("/ray_tpu.serve.UserDefinedService/llm_f32")
+    try:
+        futures = [call.future(json.dumps({"args": [refs["mix"][i]]}).encode(), timeout=300)
+                   for i in GRPC_MIX]
+        outs = [json.loads(f.result()) for f in futures]
+    finally:
+        channel.close()
+    bad = [i for i, o in zip(GRPC_MIX, outs) if o["tokens"] != refs["want_f32"][i]]
+    print(f"[dataplane] gRPC ingress (serve.start(grpc_port=...)): requests {list(GRPC_MIX)} "
+          f"of the f32 mix, {sum(len(o['tokens']) for o in outs)} greedy tokens, differing "
+          f"from this process's engine: {bad} — {card}", flush=True)
+    if bad:
+        raise AssertionError(f"f32 tokens over gRPC differ from the engine at {bad}")
+    return {"grpc_requests": len(outs)}
+
+
+def phase_dataplane(card: str, engine_serve: dict, plane: dict) -> dict:
+    """Phase 16's traffic again, now over the replicas' channel dataplane
+    (the default configuration), then a compiled DAG with a GPU stage and
+    the gRPC ingress, under a cluster of its own.  ``plane`` is phase
+    16's result: its references and its RPC-path numbers."""
+    t0 = time.perf_counter()
+    refs = plane["refs"]
+    port, grpc_port = _free_port(), _free_port()
+    ctx = ray_tpu_torch.init(num_cpus=4)
+    res = {"session_dir": ctx["session_dir"], "card": card, "http_port": port,
+           "grpc_port": grpc_port}
+    try:
+        rt_serve.start(http_port=port, grpc_port=grpc_port)
+        res.update(_serve_http(
+            "dataplane", card, engine_serve, refs, port,
+            while_f32=lambda: _grpc_requests(card, refs, grpc_port),
+            control=("SERVE_CONTROLLER", "SERVE_PROXY", "SERVE_GRPC_PROXY")))
+        dp, n = res["served"]["dataplane"], res["requests"]
+        want_items = res["tokens"] + 2 * n  # a stream's meta event and summary
+        print(f"[dataplane] the channel carried it all: the replica answered "
+              f"{res['served']['streams_answered']} streams, its dataplane served "
+              f"{dp['stream']} streams (want {n}) and {dp['stream_items']} stream items "
+              f"(want {res['tokens']} tokens + {2 * n} meta and summary events); over RPC "
+              f"(phase 16) decode {plane['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{plane['ttft_p50_s'] * 1e3:.1f} ms p95 {plane['ttft_p95_s'] * 1e3:.1f} ms, "
+              f"wall {plane['wall_s']:.2f} s — {card}", flush=True)
+        if dp["stream"] != n or dp["stream_items"] != want_items:
+            raise AssertionError(f"not every stream rode the dataplane: {dp}, want {n} "
+                                 f"streams and {want_items} items")
+        res["rpc_decode_tok_per_s"] = plane["decode_tok_per_s"]
+        res["rpc_ttft_p50_s"], res["rpc_ttft_p95_s"] = plane["ttft_p50_s"], plane["ttft_p95_s"]
+        res["rpc_wall_s"] = plane["wall_s"]
+        rt_serve.delete("llm_bf16")
+        res["dag"] = _dag_gpu_stage(card)
     finally:
         try:
             rt_serve.shutdown()
         finally:
             ray_tpu_torch.shutdown()
-    deadline = time.monotonic() + 20
-    left = _port_processes()
-    while left and time.monotonic() < deadline:
-        time.sleep(0.5)
-        left = _port_processes()
-    res["processes_left"] = left
-    res["seconds"] = time.perf_counter() - t0
-    print(f"[serve plane] serve.shutdown(), shutdown(): port processes left {sorted(left)}; "
-          f"phase took {res['seconds']:.1f} s", flush=True)
-    if left:
-        raise AssertionError(f"port processes still running after shutdown(): {left}")
-    print("[serve plane] " + json.dumps(res), flush=True)
+    _shut_down("dataplane", res, t0)
+    print("[dataplane] " + json.dumps(res), flush=True)
     return res
 
 
@@ -1884,7 +2220,10 @@ def main() -> int:
         rec["in_framework_launches"] = in_framework[rec["name"]]
     plane = phase_serve_plane(card, serve)
     fwd_rec["in_replica_launches"] = plane["launches"]
+    dataplane = phase_dataplane(card, serve, plane)
+    fwd_rec["over_dataplane_launches"] = dataplane["launches"]
     static_rec = phase_static_kernel(card, plane["static_launches"])
+    static_rec["in_dag_launches"] = dataplane["dag"]["launches"]
     print(json.dumps({"kernels": [fwd_rec, static_rec, *train_recs, *llama_recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -239,8 +239,15 @@ def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *, timeout: Optional[float]
     worker = get_global_worker()
     if isinstance(refs, ObjectRef):
         return worker.get([refs], timeout)[0]
-    # (The reference also resolves compiled-DAG refs and channel futures
-    # here; the port has neither until ROADMAP Queue R item 3.)
+    from ray_tpu_torch.dag import CompiledDAGRef
+
+    if isinstance(refs, CompiledDAGRef):
+        return refs.get(timeout)  # None = wait forever, like ObjectRefs
+    channel_get = getattr(refs, "__channel_get__", None)
+    if channel_get is not None:
+        # Dataplane futures (e.g. serve's ChannelFuture) resolve like
+        # refs so await paths need no transport awareness.
+        return channel_get(timeout)
     if not isinstance(refs, (list, tuple)):
         raise TypeError(f"ray_tpu_torch.get takes an ObjectRef or a list of them, got {type(refs)}")
     for r in refs:
@@ -322,7 +329,7 @@ def available_resources() -> dict:
 
 
 # Lazy submodules: the libraries (torch imports) load on first access.
-_LAZY_SUBMODULES = ("util", "train", "serve", "models", "ops", "air")
+_LAZY_SUBMODULES = ("util", "train", "serve", "dag", "models", "ops", "air", "experimental")
 
 
 def __getattr__(name):

@@ -193,9 +193,42 @@ _CONFIG_DEFS: Dict[str, Any] = {
     # cluster-wide capture or late arrivals evict earlier records and
     # break died-mid-capture recovery.
     "profile_table_size": 512,
-    # (The reference's compiled-DAG channel, serve dataplane and RLlib
-    # stream settings come with those planes: ROADMAP Queue R item 3,
-    # Queue A item 5.)
+    # --- compiled-DAG dataplane (dag/ + experimental/channel.py) ---
+    # Unacked-message window per cross-host socket channel: the socket
+    # analog of the ring's free-space bound, sized to hide the network
+    # RTT (flow control counts CONSUMED messages, so reader-side
+    # buffering stays bounded at ~window frames).
+    "socket_channel_window": 8,
+    # How long a compiled edge's writer retries dialing its reader's
+    # listener at loop start before the typed ChannelConnectionError.
+    "dag_socket_connect_timeout_s": 15.0,
+    # Default timeout for channel write/read paths whose caller didn't
+    # pass one — ONE knob so chaos drills can tighten every edge of the
+    # dataplane uniformly (was a hard-coded 30.0 at each call site).
+    # None-equivalent (block forever) is still expressed per call site
+    # with an explicit timeout=None.
+    "channel_default_timeout_s": 30.0,
+    # How long one reattach() attempt waits for the peer after a
+    # connection-level channel death (reader: re-accept window for the
+    # writer's epoch-bumped dial; writer: dial + handshake budget).
+    # Bounds the latency of the heavy per-consumer recovery when the
+    # peer is truly gone, so keep it a few RTTs, not a retry budget.
+    "channel_reattach_timeout_s": 5.0,
+    # Cadence of the raylet-side sweeper that reclaims ring/fan-out shm
+    # files whose registered owner PIDs are all dead (the tmpfs leak
+    # after SIGKILL).  0 disables the sweep.
+    "channel_shm_sweep_period_s": 30.0,
+    # A ring directory younger than this is never swept even if its
+    # owners look dead — covers the window between mkdir/create_file
+    # and the first endpoint registering its PID.
+    "channel_shm_orphan_grace_s": 60.0,
+    # Route serve router→replica calls and token streams over compiled
+    # per-replica channels instead of per-call actor RPC / per-token
+    # object-store items.  Any attach failure falls back to the RPC path
+    # per replica; off = always the RPC path.
+    "serve_channel_dataplane": True,
+    # (The reference's RLlib stream floor, rllib_stream_min_buffer_kb,
+    # comes with RLlib: ROADMAP Queue A item 5.)
     # --- drain / preemption (reference: gcs DrainNode + autoscaler drain
     # API; RLAX-style planned-interruption handling) ---
     # Fallback drain notice window when a drain_node call carries none.

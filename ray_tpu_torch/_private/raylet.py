@@ -249,6 +249,10 @@ class Raylet:
         self.event_loop_lag_ms = 0.0
         self.event_loop_lag_max_ms = 0.0
         self._infeasible_tick = 0
+        # Last orphaned-shm sweep (channel ring/fan-out files whose
+        # owner PIDs died without teardown); swept from the idle reaper
+        # on a channel_shm_sweep_period_s cadence.
+        self._last_shm_sweep = 0.0
         self._bg: List[asyncio.Task] = []
         self._stopping = False
 
@@ -567,8 +571,19 @@ class Raylet:
         self.draining = False
         self.drain_reason = None
         self.drain_deadline = 0.0
-        # 2. (The reference reaps orphaned compiled-channel shm here; the
-        # port has no channels until ROADMAP Queue R item 3.)
+        # 2. Reap orphaned dataplane shm the killed workers left behind
+        # (same sweeper the idle reaper runs on cadence).
+        try:
+            from ray_tpu_torch.experimental.channel import sweep_orphan_ring_dirs
+
+            reclaimed = sweep_orphan_ring_dirs()
+            if reclaimed:
+                logger.info(
+                    "fenced teardown reclaimed %d orphaned channel shm files",
+                    reclaimed,
+                )
+        except Exception:
+            logger.exception("fenced shm sweep failed")
         # 3. Re-register as a fresh incarnation.  The old client must not
         # fire its on_close reconnect path on top of this one.
         old = self.gcs
@@ -868,8 +883,27 @@ class Raylet:
                     if now - w.idle_since > kill_after:
                         dq.remove(w)
                         self._kill_worker_proc(w)
-            # (The reference sweeps orphaned compiled-channel shm here;
-            # the port has no channels until ROADMAP Queue R item 3.)
+            # Orphaned dataplane shm: ring/fan-out files under the
+            # shared ring base whose registered owner PIDs are ALL dead
+            # (a SIGKILLed writer/reader skipped every teardown path)
+            # are reclaimed so tmpfs (RAM) doesn't leak.  Safe with
+            # multiple raylets per host: unlink succeeds exactly once.
+            sweep_period = float(CONFIG.channel_shm_sweep_period_s)
+            if sweep_period > 0 and now - self._last_shm_sweep >= sweep_period:
+                self._last_shm_sweep = now
+                try:
+                    from ray_tpu_torch.experimental.channel import (
+                        sweep_orphan_ring_dirs,
+                    )
+
+                    reclaimed = sweep_orphan_ring_dirs()
+                    if reclaimed:
+                        logger.info(
+                            "reclaimed %d orphaned channel shm files",
+                            reclaimed,
+                        )
+                except Exception:
+                    logger.exception("orphaned channel shm sweep failed")
             # STARTING workers that never registered (wedged staging, a
             # hung pip, a crashed interpreter that left the handle) are
             # reaped by age so they don't leak forever.

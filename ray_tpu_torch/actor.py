@@ -200,10 +200,9 @@ class ActorClass:
 
     @property
     def bind(self):
-        raise NotImplementedError(
-            "ray_tpu_torch has no DAG API yet (.bind() waits for the dag/ port, "
-            "ROADMAP Queue R item 3)"
-        )
+        from ray_tpu_torch.dag import bind_actor_class
+
+        return bind_actor_class(self)
 
 
 def get_actor_handle_from_spec(actor_id: ActorID, spec) -> ActorHandle:

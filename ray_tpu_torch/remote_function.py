@@ -70,7 +70,6 @@ class RemoteFunction:
 
     @property
     def bind(self):
-        raise NotImplementedError(
-            "ray_tpu_torch has no DAG API yet (.bind() waits for the dag/ port, "
-            "ROADMAP Queue R item 3)"
-        )
+        from ray_tpu_torch.dag import bind_function
+
+        return bind_function(self)

@@ -2,11 +2,12 @@
 reference: python/ray/serve).
 
 Controller actor reconciles deployments → replica actors; requests route
-via power-of-two-choices over actor RPC; an aiohttp proxy serves HTTP;
-@serve.batch coalesces requests into batches.  Importing this package
-imports no torch: the controller and proxy processes never load it, and
-only a replica whose deployment needs torch does.  Not ported yet: the
-channel dataplane and the gRPC ingress (ROADMAP Queue R item 3).
+via power-of-two-choices over each replica's channel dataplane (actor
+RPC where its attach fails, or with ``serve_channel_dataplane`` off); an
+aiohttp proxy serves HTTP and a gRPC proxy gRPC; @serve.batch coalesces
+requests into batches.  Importing this package imports no torch: the
+controller and proxy processes never load it, and only a replica whose
+deployment needs torch does.
 """
 
 from ray_tpu_torch.serve._private.common import AutoscalingConfig, DeploymentConfig

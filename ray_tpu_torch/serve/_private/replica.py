@@ -1,10 +1,6 @@
 """Replica actor (reference: serve/_private/replica.py): hosts one copy of
 the user's deployment class/function; async so many requests interleave up
-to max_ongoing_requests.
-
-Port of ``ray_tpu/serve/_private/replica.py`` without
-``dataplane_attach``: requests arrive by actor RPC only until the
-channel dataplane is ported (the next slice)."""
+to max_ongoing_requests."""
 
 from __future__ import annotations
 
@@ -103,6 +99,20 @@ class Replica:
             finally:
                 self._ongoing -= 1
 
+    async def dataplane_attach(self, spec: dict) -> Dict[str, Any]:
+        """Open this replica's channel-dataplane endpoint (one per
+        router client): requests arrive over a persistent channel and
+        fan into the SAME handle_request/handle_request_stream paths as
+        RPC, so semaphores, stats and shed bounds are identical.  Must
+        run on the actor loop (captures it for cross-thread dispatch);
+        never blocks — socket accepts happen on the daemon rx thread."""
+        from ray_tpu_torch.serve._private.dataplane import ReplicaDataplane
+
+        dp = ReplicaDataplane(self, spec)
+        self._dataplanes = getattr(self, "_dataplanes", [])
+        self._dataplanes.append(dp)
+        return {"ok": True, "req_port": dp.req_port}
+
     def queue_len(self) -> int:
         """Ongoing requests — the router's power-of-two-choices signal."""
         return self._ongoing
@@ -146,6 +156,12 @@ class Replica:
         run the deployment's async ``__serve_shutdown__`` hook (e.g. the
         LLM engine stops its step loop and frees every KV block)."""
         import inspect as _inspect
+
+        for dp in getattr(self, "_dataplanes", []):
+            try:
+                dp.shutdown()
+            except Exception:  # noqa: BLE001
+                pass
 
         for name in dir(self.callable):
             if name.startswith("__"):

@@ -1,21 +1,18 @@
 """Replica router: power-of-two-choices on queue length (reference:
 serve/_private/replica_scheduler/pow_2_scheduler.py:52
-PowerOfTwoChoicesReplicaScheduler + serve/_private/router.py).
-
-Port of ``ray_tpu/serve/_private/router.py`` on its actor-RPC path only:
-every call is a replica ``handle_request`` / ``handle_request_stream``
-actor call, which is the reference's own path with
-``serve_channel_dataplane`` off.  The channel dataplane (``_dataplane``,
-one ChannelClient per replica over ``experimental/channel.py``) comes
-with the next slice of the port, with the channels, ``dag/`` and the
-gRPC ingress."""
+PowerOfTwoChoicesReplicaScheduler + serve/_private/router.py)."""
 
 from __future__ import annotations
 
 import random
 import time
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
+
+# Sentinels: this replica's dataplane attach failed (stay on the RPC
+# path) / is in progress on another thread (use RPC for this call).
+_DP_FAILED = object()
+_DP_ATTACHING = object()
 
 # Node states that demote a replica: still alive and kept in the set
 # (its node may recover), but only routed to when no replica on a
@@ -39,6 +36,13 @@ class Router:
         self._queue_estimate: Dict[str, int] = {}
         self._last_refresh = 0.0
         self._lock = threading.Lock()
+        # Channel dataplane: one ChannelClient per replica (attached
+        # lazily on first route), replacing per-call actor RPC and
+        # per-token object-store hops.  _DP_FAILED marks replicas whose
+        # attach failed (old replica class, config off): they stay on
+        # the RPC path without re-attempting every call.
+        self._dataplanes: Dict[str, Any] = {}
+        self._dp_lock = threading.Lock()
         self._rng = random.Random()
         self._reported = 0.0
         # multiplexing: soft model→replica affinity learned from routing
@@ -62,6 +66,10 @@ class Router:
                 rids &= live
                 if not rids:
                     del self._model_locations[mid]
+        with self._dp_lock:
+            gone = [rid for rid in self._dataplanes if rid not in live]
+        for rid in gone:
+            self._drop_dataplane(rid)
 
     def _apply_snapshot(self, snapshot: List[dict]) -> List[dict]:
         """Merge a controller snapshot into the cached replica set,
@@ -148,10 +156,62 @@ class Router:
         qb = self._queue_estimate.get(b["replica_id"], 0)
         return a if qa <= qb else b
 
+    def _dataplane(self, r: dict):
+        """The replica's ChannelClient, attaching lazily on first use.
+        Returns None when the dataplane is off, attach failed, or the
+        channel died (the caller falls back to the RPC path; a dead
+        client is dropped so the next call re-attaches)."""
+        from ray_tpu_torch._private.config import CONFIG
+
+        if not CONFIG.serve_channel_dataplane:
+            return None
+        rid = r["replica_id"]
+        with self._dp_lock:
+            dp = self._dataplanes.get(rid)
+            if dp is _DP_FAILED or dp is _DP_ATTACHING:
+                # attach failed, or another thread is mid-attach: this
+                # call takes the RPC path (never wait on a slow attach)
+                return None
+            if dp is not None:
+                if dp.dead:
+                    self._dataplanes.pop(rid, None)
+                    try:
+                        dp.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+                    return None
+                return dp
+            # claim the attach slot, then do the blocking work OUTSIDE
+            # the lock — attach can take seconds (actor RTT + dial +
+            # accept) and must not stall routing to healthy replicas
+            self._dataplanes[rid] = _DP_ATTACHING
+        from ray_tpu_torch.serve._private.dataplane import ChannelClient
+
+        try:
+            dp = ChannelClient.attach(rid, r["actor"])
+        except Exception:  # noqa: BLE001 — RPC path keeps working
+            dp = _DP_FAILED
+        with self._dp_lock:
+            if self._dataplanes.get(rid) is _DP_ATTACHING:
+                self._dataplanes[rid] = dp
+            elif dp is not _DP_FAILED:
+                dp.close()  # replica evicted mid-attach: discard
+                return None
+        return dp if dp is not _DP_FAILED else None
+
+    def _drop_dataplane(self, replica_id: str) -> None:
+        with self._dp_lock:
+            dp = self._dataplanes.pop(replica_id, None)
+        if dp is not None and dp is not _DP_FAILED and dp is not _DP_ATTACHING:
+            try:
+                dp.close()
+            except Exception:  # noqa: BLE001
+                pass
+
     def route(self, method: str, args: tuple, kwargs: dict,
               multiplexed_model_id: str = "", request_meta: Optional[dict] = None):
-        """Dispatch to the chosen replica; returns (ObjectRef,
-        replica_id).  Callers MUST call `done(replica_id)`
+        """Dispatch to the chosen replica; returns (ObjectRef-or-
+        ChannelFuture, replica_id).  Callers MUST call `done(replica_id)`
         when the response resolves so the in-flight estimate stays
         honest.  ``request_meta`` is the request's identity dict
         ({"tenant", "slo"}), carried on the wire to the replica."""
@@ -159,6 +219,7 @@ class Router:
 
         if tracing.current_context() is not None:
             # Traced request: the pick + send ride a router span so the
+            # request frame's channel.write parents here and the
             # timeline shows the router_queue segment.  Untraced
             # requests pay one contextvar read.
             with tracing.start_span("serve.router", {"method": method}):
@@ -176,9 +237,13 @@ class Router:
             self._queue_estimate[rid] = self._queue_estimate.get(rid, 0) + 1
             if multiplexed_model_id:
                 self._model_locations.setdefault(multiplexed_model_id, set()).add(rid)
-        # The reference tries the replica's channel dataplane here first
-        # (router.py:_dataplane); it comes with the next slice of the
-        # port (channels, dag/, dataplane), so every call takes RPC.
+        dp = self._dataplane(r)
+        if dp is not None:
+            try:
+                return dp.call(method, args, kwargs, multiplexed_model_id,
+                               request_meta), rid
+            except Exception:  # noqa: BLE001 — channel died mid-send
+                self._drop_dataplane(rid)
         ref = r["actor"].handle_request.remote(
             method, args, kwargs, multiplexed_model_id, request_meta
         )
@@ -187,9 +252,10 @@ class Router:
     def route_stream(self, method: str, args: tuple, kwargs: dict,
                      multiplexed_model_id: str = "",
                      request_meta: Optional[dict] = None):
-        """Streaming dispatch: returns (stream, replica_id) — an
-        item-ref generator via the actor streaming plane (one
-        object-store item per yield)."""
+        """Streaming dispatch: returns (stream, replica_id) — a
+        ChannelStream multiplexed over the replica's dataplane when
+        attached (one frame per token, no object-store hops), else an
+        item-ref generator via the actor streaming plane."""
         from ray_tpu_torch.util import tracing
 
         if tracing.current_context() is not None:
@@ -208,8 +274,13 @@ class Router:
             self._queue_estimate[rid] = self._queue_estimate.get(rid, 0) + 1
             if multiplexed_model_id:
                 self._model_locations.setdefault(multiplexed_model_id, set()).add(rid)
-        # RPC path only: the reference's ChannelStream over the replica
-        # dataplane comes with the next slice of the port.
+        dp = self._dataplane(r)
+        if dp is not None:
+            try:
+                return dp.stream(method, args, kwargs, multiplexed_model_id,
+                                 request_meta), rid
+            except Exception:  # noqa: BLE001
+                self._drop_dataplane(rid)
         gen = r["actor"].handle_request_stream.options(num_returns="streaming").remote(
             method, args, kwargs, multiplexed_model_id, request_meta
         )
@@ -238,9 +309,18 @@ class Router:
             self._queue_estimate.pop(replica_id, None)
             for rids in self._model_locations.values():
                 rids.discard(replica_id)
+        self._drop_dataplane(replica_id)
 
     def close(self):
         self._long_poll.stop()
+        with self._dp_lock:
+            dps, self._dataplanes = list(self._dataplanes.items()), {}
+        for _rid, dp in dps:
+            if dp is not _DP_FAILED and dp is not _DP_ATTACHING:
+                try:
+                    dp.close()
+                except Exception:  # noqa: BLE001
+                    pass
 
 
 # One router (→ one long-poll thread) per deployment per process, shared

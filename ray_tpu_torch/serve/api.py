@@ -1,10 +1,5 @@
 """Public Serve API (reference: serve/api.py — serve.run :492,
-@serve.deployment decorator, serve.start, serve.shutdown).
-
-Port of ``ray_tpu/serve/api.py``.  The gRPC ingress
-(``serve/_private/grpc_proxy.py``) is not ported yet: asking for a
-``grpc_port`` raises until the next slice brings it with the channels,
-``dag/`` and the serve dataplane (ROADMAP Queue R item 3)."""
+@serve.deployment decorator, serve.start, serve.shutdown)."""
 
 from __future__ import annotations
 
@@ -106,17 +101,12 @@ def deployment(
 def start(http_port: Optional[int] = None, grpc_port: Optional[int] = None,
           grpc_servicer_functions: Optional[list] = None) -> Any:
     """Start (or connect to) the Serve controller; optionally the HTTP
-    proxy (reference: serve.start + proxy bring-up).  ``grpc_port`` and
-    ``grpc_servicer_functions`` are the reference's gRPC ingress, which
-    the port does not have yet: asking for it raises."""
+    and/or gRPC proxies (reference: serve.start + proxy bring-up).
+    ``grpc_servicer_functions``: dotted paths of protoc-generated
+    add_XServicer_to_server functions for TYPED gRPC services
+    (reference: grpc_options.grpc_servicer_functions)."""
     global _started
     import ray_tpu_torch
-
-    if grpc_port is not None or grpc_servicer_functions:
-        raise NotImplementedError(
-            "ray_tpu_torch.serve has no gRPC ingress yet (grpc_proxy.py waits "
-            "for the serve dataplane slice, ROADMAP Queue R item 3)"
-        )
 
     if not ray_tpu_torch.is_initialized():
         ray_tpu_torch.init()
@@ -133,6 +123,8 @@ def start(http_port: Optional[int] = None, grpc_port: Optional[int] = None,
     _started = True
     if http_port is not None:
         _ensure_proxy(controller, http_port)
+    if grpc_port is not None:
+        _ensure_grpc_proxy(controller, grpc_port, grpc_servicer_functions or [])
     return controller
 
 
@@ -149,6 +141,34 @@ def _ensure_proxy(controller, port: int):
             name=name, namespace="serve", num_cpus=0.1, max_concurrency=1000
         )(ProxyActor).remote(port)
         ray_tpu_torch.get(proxy.ready.remote())
+
+
+def _ensure_grpc_proxy(controller, port: int, servicer_functions=()):
+    import ray_tpu_torch
+
+    from ray_tpu_torch.serve._private.grpc_proxy import GrpcProxyActor
+
+    name = "SERVE_GRPC_PROXY"
+    try:
+        proxy = ray_tpu_torch.get_actor(name, "serve")
+    except Exception:
+        proxy = ray_tpu_torch.remote(
+            name=name, namespace="serve", num_cpus=0.1, max_concurrency=1000
+        )(GrpcProxyActor).remote(port, servicer_functions=tuple(servicer_functions))
+        ray_tpu_torch.get(proxy.ready.remote())
+        return
+    if servicer_functions:
+        # gRPC can't register handlers after server start: requesting NEW
+        # typed services against a live proxy must fail loudly, not serve
+        # UNIMPLEMENTED (reference: grpc_options are start-time config)
+        registered = set(ray_tpu_torch.get(proxy.registered_servicers.remote()))
+        missing = [f for f in servicer_functions if f not in registered]
+        if missing:
+            raise ValueError(
+                f"gRPC proxy is already running without typed service(s) "
+                f"{missing}; grpc_servicer_functions must be passed when the "
+                f"proxy FIRST starts — serve.shutdown() and re-run with them"
+            )
 
 
 def run(
@@ -343,11 +363,12 @@ def shutdown():
         ray_tpu_torch.kill(controller)
     except Exception:
         pass
-    try:
-        proxy = ray_tpu_torch.get_actor("SERVE_PROXY", "serve")
-        ray_tpu_torch.kill(proxy)
-    except Exception:
-        pass
+    for proxy_name in ("SERVE_PROXY", "SERVE_GRPC_PROXY"):
+        try:
+            proxy = ray_tpu_torch.get_actor(proxy_name, "serve")
+            ray_tpu_torch.kill(proxy)
+        except Exception:
+            pass
     from ray_tpu_torch.serve._private.router import shutdown_routers
 
     shutdown_routers()  # stop this process's long-poll threads

@@ -1,10 +1,5 @@
 """DeploymentHandle (reference: serve/handle.py): composable handle for
-calling deployments from Python or other deployments.
-
-Port of ``ray_tpu/serve/handle.py`` on the actor-RPC path: responses are
-ObjectRefs and streams are item-ref generators.  The reference's
-dataplane ChannelFuture / ChannelStream shapes come with the next slice
-of the port."""
+calling deployments from Python or other deployments."""
 
 from __future__ import annotations
 
@@ -28,6 +23,8 @@ class DeploymentResponse:
 
         if not self._resolved:
             try:
+                # _ref is an ObjectRef (RPC path) or a dataplane
+                # ChannelFuture — ray_tpu_torch.get resolves both.
                 self._value = ray_tpu_torch.get(self._ref, timeout=timeout)
             except exceptions.ActorDiedError:
                 # the replica died under this call: evict it from the
@@ -63,10 +60,12 @@ class DeploymentResponseGenerator:
         import ray_tpu_torch
         from ray_tpu_torch import exceptions
 
+        channel = getattr(self._gen, "_is_channel_stream", False)
         try:
             for item in self._gen:
-                # the RPC streaming plane yields per-item refs
-                yield ray_tpu_torch.get(item)
+                # dataplane streams yield values; the RPC streaming
+                # plane yields per-item refs
+                yield item if channel else ray_tpu_torch.get(item)
         except exceptions.ActorDiedError:
             self._router.evict(self._replica_id)
             raise
@@ -100,12 +99,17 @@ class DeploymentResponseGenerator:
             raise
         if ref is None:
             return None
+        if getattr(self._gen, "_is_channel_stream", False):
+            return ref  # dataplane streams yield values directly
         return ray_tpu_torch.get(ref)
 
     def close(self):
-        # RPC streams have no channel to close: disconnect-cancel goes
-        # through call_same_replica (the reference's ChannelStream.close
-        # comes with the dataplane, next slice of the port)
+        closer = getattr(self._gen, "close", None)
+        if closer is not None and getattr(self._gen, "_is_channel_stream", False):
+            try:
+                closer()  # dataplane disconnect-cancel (frees engine KV)
+            except Exception:  # noqa: BLE001
+                pass
         self._mark_done()
 
     def __del__(self):
@@ -137,7 +141,7 @@ class DeploymentHandle:
         self._multiplexed_model_id = multiplexed_model_id
         self._stream = stream
         # per-request identity ({"tenant", "slo"}) threaded through the
-        # router's replica call to the replica's request context
+        # router + dataplane frames to the replica's request context
         self._request_meta = dict(request_meta) if request_meta else None
 
     def _ensure_router(self):

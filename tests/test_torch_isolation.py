@@ -193,6 +193,27 @@ def test_serve_control_plane_imports_no_torch():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[], True]
 
 
+# The channels, the DAG API and the serve dataplane: the proxy decodes
+# every token frame, and the controller, the proxy and pooled workers run
+# these, so none of them may load torch (or anything of JAX).
+_CHANNEL_MODULES = (
+    "ray_tpu_torch._private.wire", "ray_tpu_torch.experimental.channel",
+    "ray_tpu_torch.dag", "ray_tpu_torch.serve._private.dataplane",
+    "ray_tpu_torch.serve._private.grpc_proxy",
+)
+
+
+def test_channel_and_dataplane_modules_import_no_torch_jax_or_ray_tpu():
+    code = ("import importlib, json, sys\n"
+            f"for m in {_CHANNEL_MODULES!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules}\n"
+            "                        & {'torch', 'jax', 'jaxlib', 'flax', 'ray_tpu'})))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 _ACTOR_PROBE = r"""
 import json, os, sys
 import ray_tpu_torch

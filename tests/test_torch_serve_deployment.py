@@ -216,10 +216,29 @@ def _kv_drained(handle, timeout: float = 30.0) -> dict:
 # ----------------------------------------------------------------------
 # parity with the JAX package
 # ----------------------------------------------------------------------
+def _proxy_dataplanes() -> dict:
+    """deployment -> the kinds of the proxy's router's replica transports,
+    read inside the proxy's process."""
+
+    def read(_proxy):
+        from ray_tpu_torch.serve._private.router import _routers
+
+        return {name: sorted(type(v).__name__ for v in r._dataplanes.values())
+                for name, r in _routers.items()}
+
+    proxy = ray_tpu_torch.get_actor("SERVE_PROXY", "serve")
+    return ray_tpu_torch.get(proxy.__ray_call__.remote(read), timeout=30)
+
+
 def test_serve_run_llm_matches_jax_engine_over_http_and_handle(llm_app, jax_tokens):
     """build_app's LLMServer, reached through the HTTP proxy (four
     concurrent chunked streams) and through a streaming handle, streams
-    the JAX engine's greedy tokens, then drains to zero KV blocks."""
+    the JAX engine's greedy tokens, then drains to zero KV blocks.  Both
+    routes ride the replica's channel dataplane (the default), the
+    proxy's router and this process's."""
+    from ray_tpu_torch.serve._private.dataplane import ChannelClient, ChannelStream
+    from ray_tpu_torch.serve._private.router import _routers
+
     prompts, max_tokens = _prompts()
     want = jax_tokens[0]
     assert [len(w) for w in want] == max_tokens
@@ -242,11 +261,15 @@ def test_serve_run_llm_matches_jax_engine_over_http_and_handle(llm_app, jax_toke
     for ev in events:
         assert ev[-1]["done"] and ev[-1]["finish_reason"] == "length", ev[-1]
         assert not any("__serve_stream_meta__" in e for e in ev)
+    assert _proxy_dataplanes()[handle.deployment_name] == ["ChannelClient"]
 
     gens = [handle.options(stream=True).generate.remote(
         {"prompt": p, "max_tokens": m}) for p, m in zip(prompts, max_tokens)]
+    assert all(isinstance(g._gen, ChannelStream) for g in gens)
     got = [[e["token"] for e in g if "token" in e] for g in gens]
     assert got == want
+    dps = list(_routers[handle.deployment_name]._dataplanes.values())
+    assert len(dps) == 1 and isinstance(dps[0], ChannelClient), dps
 
     out = handle.remote({"prompt": prompts[1], "max_tokens": max_tokens[1]}).result(timeout=60)
     assert out["tokens"] == want[1] and out["finish_reason"] == "length"
