@@ -145,6 +145,26 @@ and prints no result line):
                   call on the old one raises GroupInvalidatedError.  Then
                   B1, B2 and B3 at GPT-2 medium's [16, 1024, 16, 64] bf16
                   causal, held against their plain versions and timed.
+19. sharded     — the sharded planes: phase 18's GPT-2 medium, shards,
+                  rows and seed under TorchTrainer(sharding_config=
+                  ShardingConfig(mesh_shape={"batch": -1, "model": 1}))
+                  on one GPU worker: gpt2_loop calls plan_from_context(),
+                  shard_init and jit_train_step on a one-card DeviceMesh
+                  and takes each batch from iter_device_batches(sharding=
+                  plan.data_sharding()).  Every parameter and AdamW moment
+                  is a DTensor with the rule table's placements; B1 2 x 24,
+                  B2 and B3 24 launches a step in the worker; every loss
+                  equals phase 18's raw run to 1e-5 relative; each batch a
+                  DTensor on the card in Data's order; a sharded checkpoint
+                  at step 6 (plan.save_checkpoint) loaded into a fresh plan
+                  gives steps 7 to 13 equal to the unbroken run's to 1e-6;
+                  no port process after shutdown().  Then ring attention's
+                  per-block path for 4 ranks emulated on the card at
+                  [16, 1024, 16, 64] bf16: each non-causal B1/B2/B3 launch
+                  on a [16, 256, 16, 64] block held against its plain
+                  version (with a planted fault), the merged O and the
+                  gradients against B1-B3 causal over the whole T; then the
+                  three non-causal at the ring block, timed.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -155,6 +175,7 @@ from __future__ import annotations
 import asyncio
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -250,17 +271,19 @@ def _qkv(T: int, H: int, D: int, dtype: torch.dtype, fused: bool, seed: int, B: 
     return tuple(torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype) for _ in range(3))
 
 
-def _time_ms(fn, reps: int = 20, rounds: int = 7) -> float:
+def _time_ms(fn, reps: int = 20, rounds: int = 7, sleep_cycles: int = 2_000_000) -> float:
     """Median per-call device time over ``rounds`` runs of ``reps`` calls,
-    CUDA events around each run; a device-side sleep before each run lets
-    the host queue the calls ahead, so launch overhead is not timed."""
+    CUDA events around each run; a device-side sleep of ``sleep_cycles``
+    before each run lets the host queue the calls ahead, so launch
+    overhead is not timed (as long as the sleep outlasts the host's
+    enqueueing of the run)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -325,28 +348,30 @@ _SOURCES = {
 }
 
 
-def _causal_pairs(T: int) -> int:
-    return T * (T + 1) // 2
+def _pairs(T: int, causal: bool = True) -> int:
+    """The (query, key) pairs the kernels compute: the causal triangle, or
+    every pair."""
+    return T * (T + 1) // 2 if causal else T * T
 
 
-def _fwd_work(B, T, H, D, elt=2):
-    """(FLOPs, bytes) of B1: QK^T and PV over the causal pairs; q, k, v
-    read once, O and the f32 LSE written once."""
-    return 4 * B * H * D * _causal_pairs(T), 4 * B * T * H * D * elt + B * H * T * 4
+def _fwd_work(B, T, H, D, elt=2, causal=True):
+    """(FLOPs, bytes) of B1: QK^T and PV over the pairs; q, k, v read once,
+    O and the f32 LSE written once."""
+    return 4 * B * H * D * _pairs(T, causal), 4 * B * T * H * D * elt + B * H * T * 4
 
 
-def _dq_work(B, T, H, D, elt=2):
+def _dq_work(B, T, H, D, elt=2, causal=True):
     """B2: QK^T, dO V^T and dS K; q, k, v, dO, LSE, Delta in, dQ out."""
-    return 6 * B * H * D * _causal_pairs(T), 5 * B * T * H * D * elt + 2 * B * H * T * 4
+    return 6 * B * H * D * _pairs(T, causal), 5 * B * T * H * D * elt + 2 * B * H * T * 4
 
 
-def _dkv_work(B, T, H, D, elt=2):
+def _dkv_work(B, T, H, D, elt=2, causal=True):
     """B3: K Q^T, V dO^T, P^T dO and dS^T Q; the same inputs, dK and dV out."""
-    return 8 * B * H * D * _causal_pairs(T), 6 * B * T * H * D * elt + 2 * B * H * T * 4
+    return 8 * B * H * D * _pairs(T, causal), 6 * B * T * H * D * elt + 2 * B * H * T * 4
 
 
 def _record(name, path, shape, ms, plain_ms, library_ms, flops, bytes_moved, err,
-            dtype: str = "bfloat16", **extra):
+            dtype: str = "bfloat16", causal: bool = True, **extra):
     """One kernel's entry of the JSON line; launches are filled in by the
     phase that drives its path.  bf16 runs on the tensor cores, f32 on
     the CUDA cores: each is bounded by its own peak."""
@@ -366,7 +391,8 @@ def _record(name, path, shape, ms, plain_ms, library_ms, flops, bytes_moved, err
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
-        "at": "[B, T, H, D] = [%d, %d, %d, %d] %s causal" % (*shape, dtype),
+        "at": "[B, T, H, D] = [%d, %d, %d, %d] %s %s" % (
+            *shape, dtype, "causal" if causal else "non-causal"),
         "gflop": flops / 1e9,
         "mb": bytes_moved / 1e6,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
@@ -490,47 +516,54 @@ def _hold_bf16_kernels(tag: str, label: str, layout: str, q, k, v, do) -> dict:
 
 
 def _time_bf16_kernels(tag: str, path: str, q, k, v, do, errs: dict, card: str,
-                       plain_reps: int = 3) -> list:
+                       plain_reps: int = 3, causal: bool = True,
+                       sleep_cycles: int = 2_000_000) -> list:
     """B1, B2 and B3 timed on these inputs beside their plain versions,
     their bounds and the library's attention on the same q, k, v
     (``scaled_dot_product_attention``'s forward for B1, its backward for
     B2 and B3); returns the three records with ``errs`` from
-    ``_hold_bf16_kernels``."""
-    o, lse = fa.flash_attention_fwd(q, k, v)
+    ``_hold_bf16_kernels`` (or the ring's hold).  ``sleep_cycles`` is
+    ``_time_ms``'s: a small shape needs a longer sleep, or the library's
+    backward (an autograd call, host-heavy) times its host."""
+    time_ms = functools.partial(_time_ms, sleep_cycles=sleep_cycles)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
     delta = fa._delta(o, do)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     shape = tuple(q.shape)
-    fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
-    fwd_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v), reps=plain_reps,
-                         rounds=3)
-    with torch.no_grad():
-        fwd_lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    dq_ms = _time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta))
-    dq_plain = _time_ms(lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta),
-                        reps=plain_reps, rounds=3)
-    dkv_ms = _time_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta))
-    dkv_plain = _time_ms(lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta),
+    fwd_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal))
+    fwd_plain = time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, causal),
                          reps=plain_reps, rounds=3)
-    bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
-    delta_ms = _time_ms(lambda: fa._delta(o, do))
+    with torch.no_grad():
+        fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+    dq_ms = time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, causal))
+    dq_plain = time_ms(lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta, causal),
+                        reps=plain_reps, rounds=3)
+    dkv_ms = time_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+    dkv_plain = time_ms(
+        lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta, causal),
+        reps=plain_reps, rounds=3)
+    bwd_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
+    delta_ms = time_ms(lambda: fa._delta(o, do))
     # the library computes dq, dk and dv in one backward call
-    bwd_lib = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+    bwd_lib = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                                    retain_graph=True))
     lib_note = {"library_call": "scaled_dot_product_attention backward: dq, dk and dv in "
                                 "one call", "flash_attention_bwd_ms": bwd_ms,
                 "delta_ms": delta_ms}
     recs = [
         _record("flash_attention_fwd", path, shape, fwd_ms, fwd_plain, fwd_lib,
-                *_fwd_work(*shape), errs["fwd"], max_abs_err_lse=errs["lse"],
-                max_row_rel_err=errs["fwd_row"], planted_fault_row_rel_err=errs["fwd_fault_row"]),
+                *_fwd_work(*shape, causal=causal), errs["fwd"], causal=causal,
+                max_abs_err_lse=errs["lse"], max_row_rel_err=errs["fwd_row"],
+                planted_fault_row_rel_err=errs["fwd_fault_row"]),
         _record("flash_attention_dq", path, shape, dq_ms, dq_plain, bwd_lib,
-                *_dq_work(*shape), errs["dq"][0], max_rel_err=errs["dq"][1], **lib_note),
+                *_dq_work(*shape, causal=causal), errs["dq"][0], causal=causal,
+                max_rel_err=errs["dq"][1], **lib_note),
         _record("flash_attention_dkv", path, shape, dkv_ms, dkv_plain, bwd_lib,
-                *_dkv_work(*shape), max(errs["dk"][0], errs["dv"][0]),
-                max_rel_err=max(errs["dk"][1], errs["dv"][1]), **lib_note),
+                *_dkv_work(*shape, causal=causal), max(errs["dk"][0], errs["dv"][0]),
+                causal=causal, max_rel_err=max(errs["dk"][1], errs["dv"][1]), **lib_note),
     ]
     for rec in recs:
         _print_record(tag, rec, card)
@@ -2490,6 +2523,229 @@ def phase_data(card: str) -> dict:
     res["seconds"] = time.perf_counter() - t0
     print(f"[data] phase took {res['seconds']:.1f} s", flush=True)
     print("[data] " + json.dumps(res), flush=True)
+    res["rows"] = rows  # phase 19 trains on the same rows; not printed
+    return res
+
+
+# ----------------------------------------------------------------------
+# The sharded planes: GPT-2 medium under a ShardingConfig inside
+# TorchTrainer.fit() on a one-card mesh, a sharded checkpoint and its
+# resume, and ring attention's per-block path for emulated ranks
+# ----------------------------------------------------------------------
+RING_N = 4  # emulated ranks of the ring: [16, 1024] splits into blocks of 256
+
+
+def _ring_hold(q, k, v, do) -> dict:
+    """The ring's per-block steps for RING_N ranks emulated on the card
+    (``ring_attention.emulate_ring``), with the launch counts set to 0
+    just before and read just after; each non-causal launch held against
+    its plain version on the same block (B1's O by row at O_ROW_TOL, the
+    LSE at 1e-3, B2/B3 at 1e-2 of max |ref|), a planted fault (one 64-key
+    V tile of a block zeroed in the plain version) read by the same row
+    check; then the merged O, dq, dk and dv against B1, B2 and B3 causal
+    over the whole T."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    errs = {"fwd": [], "fwd_row": [], "lse": [], "dq": [], "dk": [], "dv": []}
+
+    def fwd(qb, kb, vb, causal):
+        o, lse = ra.block_forward(qb, kb, vb, causal)
+        if not causal:
+            torch.cuda.synchronize()
+            ro, rlse = fa.flash_attention_fwd_reference(qb, kb, vb, causal=False)
+            errs["fwd"].append((o.float() - ro.float()).abs().max().item())
+            errs["fwd_row"].append(_row_rel(o, ro))
+            errs["lse"].append((lse - rlse).abs().max().item())
+            if "fault" not in errs:
+                v_fault = vb.clone()
+                v_fault[:, 64:128] = 0
+                errs["fault"] = _row_rel(
+                    fa.flash_attention_fwd_reference(qb, kb, v_fault, causal=False)[0], ro)
+        return o, lse
+
+    def bwd(qb, kb, vb, dob, lse, delta, causal):
+        got = ra.block_backward(qb, kb, vb, dob, lse, delta, causal)
+        if not causal:
+            torch.cuda.synchronize()
+            ref = (fa.flash_attention_dq_reference(qb, kb, vb, dob, lse, delta, False),
+                   *fa.flash_attention_dkv_reference(qb, kb, vb, dob, lse, delta, False))
+            for key, a, b in zip(("dq", "dk", "dv"), got, ref):
+                errs[key].append(_rel(a, b))
+        return got
+
+    _reset_counts()
+    out, dq, dk, dv = ra.emulate_ring(q, k, v, do, RING_N, fwd=fwd, bwd=bwd)
+    torch.cuda.synchronize()
+    launches = list(_launch_counts())
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    whole = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    _reset_counts()  # the whole-T references are not the ring's launches
+    return {
+        "launches": launches,
+        "noncausal_blocks": len(errs["fwd"]),
+        "block_fwd": max(errs["fwd"]), "block_fwd_row": max(errs["fwd_row"]),
+        "block_lse": max(errs["lse"]), "block_fault_row": errs["fault"],
+        **{f"block_{key}": max(errs[key], key=lambda e: e[1]) for key in ("dq", "dk", "dv")},
+        "o_vs_whole": (out.float() - o.float()).abs().max().item(),
+        "o_vs_whole_row": _row_rel(out, o),
+        **{f"{name}_vs_whole": _rel(a, b)
+           for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), whole)},
+    }
+
+
+def phase_sharded(card: str, data: dict) -> dict:
+    """GPT-2 medium as phase 18 (the same eight token shards, read_numpy
+    and streaming_split to one GPU worker, f32 params, bf16 compute, remat,
+    B=16, T=1024, AdamW lr 3e-4, 13 steps) under
+    TorchTrainer(sharding_config=ShardingConfig(mesh_shape={"batch": -1,
+    "model": 1})): gpt2_loop calls plan_from_context(), shard_init and
+    jit_train_step, and takes each batch from iter_device_batches(sharding=
+    plan.data_sharding()).  Held to phase 18's raw run (the same weights
+    and rows) and to its own resume from a sharded checkpoint; then the
+    ring attention block path for emulated ranks on the card, and B1, B2,
+    B3 non-causal at the ring block [16, 256, 16, 64]."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.train.sharding import ShardingConfig
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = gpt2.GPT2Config.medium(param_dtype=torch.float32)
+    n, resume_at = TRAIN_WARMUP + TRAIN_STEPS, 6
+    want = [2 * cfg.n_layer * n, cfg.n_layer * n, cfg.n_layer * n]
+    raw = data["raw"]
+    res = {"card": card, "config": f"GPT-2 medium, f32 params, bf16 compute, remat, "
+                                   f"B={DATA_B}, T={TRAIN_T}, AdamW lr {TRAIN_LR}, "
+                                   f"ShardingConfig(mesh_shape={{'batch': -1, 'model': 1}})"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
+        shards = _write_token_shards(root, seed=9)  # phase 18's shards
+        ray_tpu_torch.init(num_cpus=4)
+        try:
+            ordered = [b["data"] for b in rd.read_numpy(root).iter_batches(
+                batch_size=DATA_B, drop_last=True, prefetch_batches=0)][:n]
+            rows = np.concatenate(ordered)
+            _rows_delivered(shards, rows)
+            _reset_counts()
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_train_") as storage:
+                result = TorchTrainer(
+                    train_loop_per_worker,
+                    train_loop_config={"cfg": cfg, "seed": 0, "lr": TRAIN_LR,
+                                       "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+                                       "batch_size": DATA_B, "device": "cuda",
+                                       "peak_flops": PEAK_BF16_FLOPS, "resume_at": resume_at},
+                    datasets={"train": rd.read_numpy(root)},
+                    scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                    run_config=RunConfig(name="gpt2_medium_sharded", storage_path=storage),
+                    sharding_config=ShardingConfig(mesh_shape={"batch": -1, "model": 1}),
+                ).fit()
+            m = result.metrics
+            res["driver_launches_during_fit"] = list(_launch_counts())
+        finally:
+            ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 20
+    left = _port_processes()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left = _port_processes()
+    res["processes_left"] = left
+    res["fit_seconds"] = time.perf_counter() - t0
+
+    losses = m["losses"]
+    same_rows = bool(np.array_equal(rows, data["rows"][:len(rows)]))
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, raw["losses"])]
+    replay = [abs(a - b) / abs(b) for a, b in zip(m["replay_losses"], losses[:resume_at])]
+    resumed = [abs(a - b) / abs(b) for a, b in zip(m["resumed_losses"], losses[resume_at:])]
+    fp_ok = m["fingerprints"] == [_fingerprints(b) for b in ordered]
+    res["trainer"] = {k: v for k, v in m.items() if k != "fingerprints"}
+    res.update(loss_rel_err_vs_raw=max(rels), replay_rel_err=max(replay),
+               resume_rel_err=max(resumed), fingerprints_equal=fp_ok,
+               rows_equal_to_phase18=same_rows)
+    print(f"[sharded] {m['device_name']}: mesh {m['mesh']} ({m['mesh_device_type']}); every "
+          f"parameter a DTensor with the rule table's placements {m['params_on_rule_placements']}, "
+          f"AdamW moments on the parameters' placements {m['moments_follow_params']}; qkv "
+          f"{m['qkv_placements']} local {m['qkv_local_shape']}; batches "
+          f"{m['batch_placements']} {m['batch_kinds']}, fingerprints equal to Data's own order "
+          f"{fp_ok} (rows equal to phase 18's {same_rows}) — {card}", flush=True)
+    print(f"[sharded] in fit(): loss {losses[0]:.4f} -> {losses[-1]:.4f} over {n} steps; step "
+          f"{m['step_ms']:.2f} ms against the raw step's {raw['step_ms']:.2f} ms (phase 18, this "
+          f"run), {m['tokens_per_s']:.0f} tok/s, MFU {m['mfu']:.4f}, peak memory "
+          f"{m['peak_memory_gb']:.2f} GB; losses vs the raw run's max rel {max(rels):.2e} (tol "
+          f"1e-5); launches B1/B2/B3 in the worker {m['launches']} (want {want}), the driver's "
+          f"during fit() {res['driver_launches_during_fit']} — {card}", flush=True)
+    print(f"[sharded] checkpoint at step {resume_at} ({m['checkpoint_files']}, "
+          f"{m['checkpoint_bytes'] / 1e9:.3f} GB; save {m['checkpoint_save_s']:.1f} s, load "
+          f"{m['checkpoint_load_s']:.1f} s): replayed steps 1..{resume_at} max rel "
+          f"{max(replay):.2e} at {m['replay_step_ms']:.2f} ms a step, steps {resume_at + 1}..{n} "
+          f"after loading into a fresh plan max rel {max(resumed):.2e} (tol 1e-6) at "
+          f"{m['resumed_step_ms']:.2f} ms a step (both without the data iterator); fit() and "
+          f"resume took {res['fit_seconds']:.1f} s; after shutdown() port processes left "
+          f"{sorted(left)}", flush=True)
+    if not (m["params_on_rule_placements"] and m["moments_follow_params"]
+            and m["mesh"] == {"batch": 1, "model": 1} and m["mesh_device_type"] == "cuda"):
+        raise AssertionError(f"the sharded state is not on the rule placements: {res['trainer']}")
+    if m["launches"] != want or res["driver_launches_during_fit"] != [0, 0, 0]:
+        raise AssertionError(f"launched {m['launches']} in the worker (want {want}), "
+                             f"{res['driver_launches_during_fit']} in the driver")
+    if len(losses) != n or max(rels) > 1e-5 or not same_rows:
+        raise AssertionError(f"sharded losses {losses} != raw {raw['losses']}")
+    if max(replay) > 1e-6 or max(resumed) > 1e-6:
+        raise AssertionError(f"resume: replay {m['replay_losses']}, resumed "
+                             f"{m['resumed_losses']} vs {losses}")
+    if not fp_ok or [(kind, pl) for kind, _, pl in m["batch_placements"]] != [
+            ("DTensor", "(Replicate(), Replicate())")] or "'cuda'" not in m["batch_placements"][0][1]:
+        raise AssertionError(f"batches: fingerprints equal {fp_ok}, {m['batch_placements']}")
+    if m["batch_kinds"] != [(f"cuda:{torch.cuda.current_device()}", "torch.int64")]:
+        raise AssertionError(f"batches reached the step as {m['batch_kinds']}")
+    if left:
+        raise AssertionError(f"left after shutdown(): processes {left}")
+
+    # (c) the ring's per-block path: GPT-2 medium's attention, T split
+    # into RING_N blocks of 256, every rank's blocks in the ring's order
+    B, T, H, D = DATA_B, TRAIN_T, cfg.n_head, cfg.d_head
+    g = torch.Generator(device="cuda").manual_seed(500)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    ring = _ring_hold(q, k, v, do)
+    res["ring"] = ring
+    nb = ring["noncausal_blocks"]
+    print(f"[sharded] ring of {RING_N} emulated ranks at [{B}, {T}, {H}, {D}] bf16: launches "
+          f"B1/B2/B3 {ring['launches']} ({nb} non-causal blocks each); each non-causal block "
+          f"[{B}, {T // RING_N}, {H}, {D}] vs plain: B1 max|dO| {ring['block_fwd']:.3e} (tol "
+          f"0.02), by row {ring['block_fwd_row']:.3e} (tol {O_ROW_TOL:g}; one V tile zeroed reads "
+          f"{ring['block_fault_row']:.3e}), max|dLSE| {ring['block_lse']:.3e} (tol 0.001); "
+          f"max|err|/max|ref| dq {ring['block_dq'][1]:.3e} dk {ring['block_dk'][1]:.3e} dv "
+          f"{ring['block_dv'][1]:.3e} (tol 0.01) — {card}", flush=True)
+    print(f"[sharded] merged ring vs B1/B2/B3 causal over the whole T: O max|d| "
+          f"{ring['o_vs_whole']:.3e} (tol 0.02), by row {ring['o_vs_whole_row']:.3e} (tol "
+          f"{O_ROW_TOL:g}); max|err|/max|ref| dq {ring['dq_vs_whole'][1]:.3e} dk "
+          f"{ring['dk_vs_whole'][1]:.3e} dv {ring['dv_vs_whole'][1]:.3e} (tol 0.01)", flush=True)
+    blocks_ok = (ring["block_fwd"] <= 2e-2 and ring["block_fwd_row"] <= O_ROW_TOL
+                 and ring["block_lse"] <= 1e-3
+                 and all(ring[f"block_{x}"][1] <= 1e-2 for x in ("dq", "dk", "dv")))
+    whole_ok = (ring["o_vs_whole"] <= 2e-2 and ring["o_vs_whole_row"] <= O_ROW_TOL
+                and all(ring[f"{x}_vs_whole"][1] <= 1e-2 for x in ("dq", "dk", "dv")))
+    ring_launches = RING_N * (RING_N + 1) // 2
+    if not (blocks_ok and whole_ok) or ring["launches"] != [ring_launches] * 3 or nb != (
+            ring_launches - RING_N):
+        raise AssertionError(f"the ring's block path disagrees: {ring}")
+    if ring["block_fault_row"] <= O_ROW_TOL:
+        raise AssertionError(f"the block row check cannot see a zeroed V tile "
+                             f"({ring['block_fault_row']:.3e} <= {O_ROW_TOL:g})")
+
+    # B1, B2, B3 non-causal at the ring block, timed
+    qb, kb, vb, dob = (t[:, :T // RING_N].contiguous() for t in (q, k, v, do))
+    errs = {"fwd": ring["block_fwd"], "fwd_row": ring["block_fwd_row"],
+            "fwd_fault_row": ring["block_fault_row"], "lse": ring["block_lse"],
+            **{x: ring[f"block_{x}"] for x in ("dq", "dk", "dv")}}
+    recs = _time_bf16_kernels("sharded kernels", "ring block", qb, kb, vb, dob, errs, card,
+                              causal=False, sleep_cycles=50_000_000)
+    for rec in recs:
+        rec["launches"] = nb  # the non-causal launches of the ring's run
+        rec["causal_launches_in_ring"] = RING_N
+    res["kernels"] = recs
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[sharded] phase took {res['seconds']:.1f} s", flush=True)
+    print("[sharded] " + json.dumps(res), flush=True)
     return res
 
 
@@ -2528,8 +2784,9 @@ def main() -> int:
     static_rec = phase_static_kernel(card, plane["static_launches"])
     static_rec["in_dag_launches"] = dataplane["dag"]["launches"]
     data = phase_data(card)
+    sharded = phase_sharded(card, data)
     print(json.dumps({"kernels": [fwd_rec, static_rec, *train_recs, *llama_recs,
-                                  *data["kernels"]]}), flush=True)
+                                  *data["kernels"], *sharded["kernels"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

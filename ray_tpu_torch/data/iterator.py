@@ -189,14 +189,21 @@ class DataIterator:
         copy one or more batches ahead, so while step N computes, batch
         N+1 is on its way (see ``_DeviceStager``). ``device="cpu"``
         yields CPU tensors through the same pipeline, with no stream.
+
+        With ``sharding`` (a ``parallel.sharding.NamedSharding``, e.g. a
+        GSPMD plan's ``data_sharding()``) each column is laid out across
+        the mesh as a DTensor on the mesh's device (``device`` is then
+        the mesh's): the batch this iterator yields is the global batch,
+        and each rank keeps its window of it over the spec's axes (the
+        batch axis, and ``sp``'s window of the sequence where the spec
+        names it), so a sharded step consumes it without a collective.
         """
         import torch
 
         if sharding is not None:
-            raise NotImplementedError(
-                "iter_device_batches(sharding=...) waits for the DeviceMesh of "
-                "ROADMAP Queue A item 4; pass device= for one card"
-            )
+            from ray_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(sharding.mesh)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -230,12 +237,13 @@ class DataIterator:
             it = (to_host(b) for b in host_batches)
             if prefetch_batches and prefetch_batches > 0:
                 it = _prefetch(it, prefetch_batches)
-            return it
-        stager = _DeviceStager(dev, dtypes)
-        staged = stager.stage_all(host_batches)
-        if prefetch_batches and prefetch_batches > 0:
-            staged = _prefetch(staged, prefetch_batches)
-        return stager.hand_out(staged)
+        else:
+            stager = _DeviceStager(dev, dtypes)
+            staged = stager.stage_all(host_batches)
+            if prefetch_batches and prefetch_batches > 0:
+                staged = _prefetch(staged, prefetch_batches)
+            it = stager.hand_out(staged)
+        return it if sharding is None else _laid_out(it, sharding)
 
     def iter_torch_batches(
         self,
@@ -289,6 +297,21 @@ def _local_shuffle(
         if n:
             perm = rng.permutation(n)
             yield {k: v[perm] for k, v in buf.items()}
+
+
+def _laid_out(batches: Iterator[Dict[str, Any]], sharding: Any) -> Iterator[Dict[str, Any]]:
+    """Each column of each batch as a DTensor with ``sharding``'s spec,
+    clipped to the column's rank, every rank keeping its own window."""
+    from ray_tpu_torch.parallel.sharding import _clip_spec, place, spec_to_placements
+
+    try:
+        for batch in batches:
+            yield {k: place(v, sharding.mesh,
+                            spec_to_placements(_clip_spec(sharding.spec, tuple(v.shape)),
+                                               sharding.mesh))
+                   for k, v in batch.items()}
+    finally:
+        batches.close()  # stops a prefetching producer with this iterator
 
 
 class _DeviceStager:

@@ -5,8 +5,10 @@ count), and the layers and initialiser the families share.
 The reference's step is pure: it returns new params and optimizer state.
 Here the model and the optimizer are updated in place, which keeps one
 copy of the weights and of the AdamW moments on the card.  The sharded
-recipes (``make_sharded_train_state``, ``make_sharded_train_step``) wait
-for the port's sharded planes.
+recipes (``make_sharded_train_state``, ``make_sharded_train_step``) put
+the parameters and the moments on a ``DeviceMesh`` as DTensors with the
+Megatron layout of ``parallel/sharding.py``, and lay each batch over the
+batch (and sequence) axes; DTensor dispatch inserts the collectives.
 
 ``Linear`` and ``Embedding`` store their weights in ``param_dtype`` and
 compute in ``dtype``, as flax's ``Dense(dtype, param_dtype)`` and
@@ -49,7 +51,54 @@ class Embedding(nn.Embedding):
         self.compute_dtype = dtype
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self.weight).to(self.compute_dtype)
+        out = F.embedding(idx, self.weight)
+        if type(out) is not torch.Tensor:  # a DTensor: a vocab-sharded table's
+            out = _reduce_partial(out)     # rows arrive as masked partial sums
+        return out.to(self.compute_dtype)
+
+
+def split_heads(t: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[..., n_head * d] -> [..., n_head, d] (a view of a plain tensor).  A
+    DTensor sharded on its last dim over mesh dims whose sizes do not
+    divide the heads is first gathered on those dims: a view cannot split
+    one rank's shard across heads (GSPMD would, the reference never asks)."""
+    if type(t) is not torch.Tensor:
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = t.ndim - 1
+        over = [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == last]
+        if n_head % math.prod(t.device_mesh.size(i) for i in over):
+            t = t.redistribute(t.device_mesh, [Replicate() if i in over else p
+                                               for i, p in enumerate(t.placements)])
+    return t.unflatten(-1, (n_head, t.shape[-1] // n_head))
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """[..., n_head, d] -> [..., n_head * d].  A DTensor merges its local
+    heads and keeps its placements (a head shard is a shard of the merged
+    dim), so the backward never views a gradient sharded on the merged dim
+    as heads it may not divide into."""
+    if type(t) is torch.Tensor:
+        return t.flatten(-2)
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import contiguous_stride
+
+    shape = (*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    return DTensor.from_local(t.to_local().flatten(-2), t.device_mesh, t.placements,
+                              run_check=False, shape=shape, stride=contiguous_stride(shape))
+
+
+def _reduce_partial(t):
+    """A DTensor with its partial placements summed (Megatron's all-reduce
+    after a vocab-parallel embedding): DTensor reduces the masked partial
+    rows of a sharded table only to ``Replicate``, not on into a shard."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if any(isinstance(p, Partial) for p in t.placements):
+        t = t.redistribute(t.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                           for p in t.placements])
+    return t
 
 
 def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -137,8 +186,10 @@ def normal(shape, std: float, generator: Optional[torch.Generator],
 def next_token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Cross entropy in logsumexp form, in float32: mean over positions
     of logsumexp(logits) - logits[target]."""
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    # [..., 1] until the mean: a vocab-sharded DTensor's gather is a
+    # masked partial sum, which DTensor reduces only at the gather's shape
+    lse = torch.logsumexp(logits.float(), dim=-1, keepdim=True)
+    tgt = logits.gather(-1, targets[..., None].long())
     return (lse - tgt.float()).mean()
 
 
@@ -164,6 +215,58 @@ def make_train_step(loss_fn: Callable, cfg: Any, optimizer: torch.optim.Optimize
         return loss.detach()
 
     return train_step
+
+
+def make_sharded_train_state(init_fn: Callable[[Optional[torch.Generator]], nn.Module], mesh,
+                             make_optimizer: Callable[[Any], torch.optim.Optimizer],
+                             rules=None, generator: Optional[torch.Generator] = None):
+    """Build the model with ``init_fn(generator)`` (the whole model on
+    every rank, the same draws as an unsharded init from that generator;
+    default seed 0 on the mesh's device), then keep each rank's shard of
+    every parameter as a DTensor with the layout of ``parallel/sharding.py``
+    (``gpt_sharding_rules`` unless ``rules`` is given) and build the
+    optimizer over them with ``make_optimizer(params)``, its moments
+    following the parameters' placements.  Returns (model, optimizer,
+    specs)."""
+    from ray_tpu_torch.parallel.mesh import mesh_device
+    from ray_tpu_torch.parallel.sharding import (gpt_sharding_rules, infer_param_spec,
+                                                 shard_module, shard_optimizer)
+
+    if generator is None:
+        generator = torch.Generator(device=mesh_device(mesh)).manual_seed(0)
+    rules = rules if rules is not None else gpt_sharding_rules()
+    model = init_fn(generator)
+    specs = infer_param_spec(model, rules, mesh)
+    shard_module(model, mesh, specs)
+    return model, shard_optimizer(make_optimizer(model.parameters())), specs
+
+
+def make_sharded_train_step(step_fn: Callable, mesh):
+    """run(model, tokens, targets) -> loss for a ``step_fn`` of
+    ``make_train_step``'s kind over a model from
+    ``make_sharded_train_state``: the batch is laid out over the mesh
+    (``batch_spec``: dp and fsdp over the batch, sp over the sequence; a
+    host batch is the global batch, the same on every rank, and each rank
+    keeps its window), the step runs under DTensor dispatch (plain tensors
+    the model makes, such as positions, count as replicated), and the loss
+    comes back as a plain tensor, the same on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ray_tpu_torch._private import profiling
+    from ray_tpu_torch.parallel.sharding import NamedSharding, batch_spec, constrain
+
+    data_sharding = NamedSharding(mesh, batch_spec(mesh))
+
+    def run(model: nn.Module, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        tokens = constrain(tokens, mesh, data_sharding.spec)
+        targets = constrain(targets, mesh, data_sharding.spec)
+        with implicit_replication():
+            loss = step_fn(model, tokens, targets)
+        profiling.report_device_memory()
+        return loss.full_tensor()
+
+    run.data_sharding = data_sharding
+    return run
 
 
 def num_params(model: nn.Module) -> int:

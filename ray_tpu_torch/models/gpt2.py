@@ -20,7 +20,9 @@ each into contiguous heads; ``lm_head`` has no bias and is not tied to
 ``wte``.
 
 Training: ``loss_fn``, ``make_train_step`` (over ``models/common.py``),
-``make_adamw`` and ``flops_per_token``; ``remat`` recomputes each block's
+``make_adamw``, ``flops_per_token`` and the sharded recipes
+``make_sharded_train_{state,step}`` (DTensors on a ``DeviceMesh``, ring
+attention over ``cfg.sp_axis``); ``remat`` recomputes each block's
 forward in the backward (``torch.utils.checkpoint``), as the reference's
 ``nn.remat``.  Attention's backward runs the flash dq and dkv kernels.
 
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +61,10 @@ class GPT2Config:
     param_dtype: Optional[torch.dtype] = None
     remat: bool = True  # recompute each block's forward in the backward
     use_bias: bool = True
+    # Sequence parallelism: when mesh (a DeviceMesh) has a >1 `sp_axis`,
+    # attention runs as ring attention over it (ops/ring_attention.py).
+    mesh: Any = None
+    sp_axis: Optional[str] = None
 
     @property
     def d_head(self) -> int:
@@ -119,9 +125,8 @@ class Block(nn.Module):
         """Causal block over whole prompts from position 0: x [B, T, d] ->
         (x', k, v), k and v [B, T, H, Dh] for the serving engine's cache."""
         cfg = self.cfg
-        B, T, _ = x.shape
         q, k, v = _qkv(self, x, cfg)
-        att = causal_attention(q, k, v).reshape(B, T, cfg.d_model)
+        att = common.merge_heads(causal_attention(q, k, v, mesh=cfg.mesh, sp_axis=cfg.sp_axis))
         x = x + self.attn.attn_out(att)
         x = x + self.mlp(_ln(x, self.ln_2, cfg.dtype))
         return x, k, v
@@ -187,6 +192,26 @@ def make_adamw(params, lr: float = 3e-4, weight_decay: float = 0.1) -> torch.opt
                              weight_decay=weight_decay)
 
 
+def make_sharded_train_state(cfg: GPT2Config, mesh,
+                             make_optimizer: Callable[[Any], torch.optim.Optimizer],
+                             generator: Optional[torch.Generator] = None):
+    """The model and its optimizer on ``mesh`` with the Megatron layout of
+    ``parallel/sharding.py`` (shared recipe in ``models/common.py``):
+    (model, optimizer, specs).  The weights are ``init_model``'s on the
+    mesh's device from ``generator`` (default: seed 0 there), the same on
+    every rank and the same as an unsharded init from it."""
+    return common.make_sharded_train_state(
+        lambda g: init_model(cfg, g, device=g.device), mesh, make_optimizer, generator=generator)
+
+
+def make_sharded_train_step(cfg: GPT2Config, mesh, optimizer: torch.optim.Optimizer):
+    """The SPMD train step: dp/fsdp over the batch, tp over hidden, sp
+    over the sequence (ring attention when ``cfg.sp_axis`` names it); the
+    model and optimizer from ``make_sharded_train_state`` (shared recipe
+    in ``models/common.py``)."""
+    return common.make_sharded_train_step(make_train_step(cfg, optimizer), mesh)
+
+
 def flops_per_token(cfg: GPT2Config, seq_len: int) -> float:
     """Approximate training FLOPs/token: 6*N + attention term."""
     n = (
@@ -210,8 +235,7 @@ def _qkv(blk: Block, x: torch.Tensor, cfg: GPT2Config):
     of the projection's output, which the flash kernel reads through their
     strides."""
     qkv = blk.attn.qkv(_ln(x, blk.ln_1, cfg.dtype))
-    return tuple(t.unflatten(-1, (cfg.n_head, cfg.d_head))
-                 for t in qkv.split(cfg.d_model, dim=-1))
+    return tuple(common.split_heads(t, cfg.n_head) for t in qkv.split(cfg.d_model, dim=-1))
 
 
 def _forward_prompt(model: GPT2, tokens: torch.Tensor):

@@ -24,15 +24,16 @@ and B3 (backward) at head dim d_model / n_head.  The repeated k and v are
 contiguous ``[B, T, H, Dh]`` tensors, which the kernels read as they are;
 autograd sums their gradients back over each group.
 
-Not ported: ``make_sharded_train_state`` / ``make_sharded_train_step``,
-which wait for the port's sharded planes; ``mesh``/``sp_axis`` raise
-``NotImplementedError`` in ``causal_attention``.
+The sharded recipes ``make_sharded_train_{state,step}`` are
+``models/common.py``'s: the rule table of ``parallel/sharding.py`` names
+``{q,k,v,o}_proj`` and ``{gate,up,down}_proj``, and ``mesh``/``sp_axis``
+run ring attention over a >1 ``sp`` axis, as in ``models/gpt2.py``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Union
+from typing import Any, Callable, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -119,10 +120,9 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        B, T, _ = x.shape
-        q = self.q_proj(x).reshape(B, T, cfg.n_head, cfg.d_head)
-        k = self.k_proj(x).reshape(B, T, cfg.n_kv_head, cfg.d_head)
-        v = self.v_proj(x).reshape(B, T, cfg.n_kv_head, cfg.d_head)
+        q = common.split_heads(self.q_proj(x), cfg.n_head)
+        k = common.split_heads(self.k_proj(x), cfg.n_kv_head)
+        v = common.split_heads(self.v_proj(x), cfg.n_kv_head)
         q = rope(q, cfg.rope_theta)
         k = rope(k, cfg.rope_theta)
         rep = cfg.n_head // cfg.n_kv_head
@@ -130,7 +130,7 @@ class LlamaAttention(nn.Module):
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
         out = causal_attention(q, k, v, mesh=cfg.mesh, sp_axis=cfg.sp_axis)
-        return self.o_proj(out.reshape(B, T, cfg.n_head * cfg.d_head))
+        return self.o_proj(common.merge_heads(out))
 
 
 class LlamaMLP(nn.Module):
@@ -201,6 +201,20 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer):
     ``model`` in place (``models/common.py``); ``model`` must be built
     from ``cfg``."""
     return common.make_train_step(loss_fn, cfg, optimizer)
+
+
+def make_sharded_train_state(cfg: LlamaConfig, mesh,
+                             make_optimizer: Callable[[Any], torch.optim.Optimizer],
+                             generator: Optional[torch.Generator] = None):
+    """Shared recipe (``models/common.py``): (model, optimizer, specs) on
+    ``mesh``, the weights ``init_model``'s from ``generator`` (default:
+    seed 0 on the mesh's device)."""
+    return common.make_sharded_train_state(
+        lambda g: init_model(cfg, g, device=g.device), mesh, make_optimizer, generator=generator)
+
+
+def make_sharded_train_step(cfg: LlamaConfig, mesh, optimizer: torch.optim.Optimizer):
+    return common.make_sharded_train_step(make_train_step(cfg, optimizer), mesh)
 
 
 num_params = common.num_params

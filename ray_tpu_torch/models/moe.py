@@ -16,8 +16,10 @@ D]`` weights used as they are.  ``torch.topk`` picks among tied router
 probabilities in its own order, where ``jax.lax.top_k`` takes the lower
 expert index first.
 
-Not ported: ``moe_sharding_rules``, which waits for the port's sharded
-planes; on one device the experts run without their exchange.
+Not ported: ``moe_sharding_rules`` (the expert-parallel rules over an
+``ep`` axis), which waits for the second half of the sharded planes
+(ROADMAP Queue A item 4); on one device the experts run without their
+exchange.
 """
 
 from __future__ import annotations

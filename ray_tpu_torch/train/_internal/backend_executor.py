@@ -45,8 +45,12 @@ class BackendExecutor:
         scaling_config: ScalingConfig,
         run_config: RunConfig,
         experiment_name: str,
+        sharding_config=None,
     ):
         self.backend_config = backend_config
+        # GSPMD layout declaration (train/sharding): forwarded into every
+        # session so the loop can bind it to the live device view.
+        self.sharding_config = sharding_config
         self.backend = backend_config.backend_cls()()
         self.scaling = scaling_config
         self.run_config = run_config
@@ -298,6 +302,7 @@ class BackendExecutor:
                 dataset_shards=(dataset_shards[rank] if dataset_shards else None),
                 generation=self.generation,
                 collective_group_name=self.collective_group_name,
+                sharding_config=self.sharding_config,
             )
             refs.append(w.start_session.remote(self._train_fn, session_kwargs))
         ray_tpu_torch.get(refs)

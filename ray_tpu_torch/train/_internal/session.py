@@ -40,6 +40,7 @@ class _TrainSession:
         dataset_shards: Optional[Dict[str, Any]] = None,
         generation: int = 0,
         collective_group_name: Optional[str] = None,
+        sharding_config: Optional[Any] = None,
     ):
         self.train_fn = train_fn
         self.world_rank = world_rank
@@ -56,6 +57,9 @@ class _TrainSession:
         # collective group this session's loop joins.
         self.generation = generation
         self.collective_group_name = collective_group_name
+        # GSPMD layout declaration (train/sharding): surfaced to the loop
+        # via train.get_context().get_sharding_config().
+        self.sharding_config = sharding_config
         # maxsize=1 gives natural lockstep with the driver's polling.
         self._queue: "queue.Queue" = queue.Queue(maxsize=1)
         self._thread: Optional[threading.Thread] = None

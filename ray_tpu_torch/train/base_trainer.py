@@ -303,6 +303,7 @@ class DataParallelTrainer(BaseTrainer):
         while True:
             executor = BackendExecutor(
                 self.backend_config, self.scaling_config, self.run_config, name,
+                sharding_config=getattr(self, "sharding_config", None),
             )
             proactive = False
             try:

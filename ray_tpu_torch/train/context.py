@@ -66,6 +66,15 @@ class TrainContext:
         get_collective_group_name)."""
         return getattr(_get_session(), "generation", 0)
 
+    def get_sharding_config(self):
+        """The :class:`~ray_tpu_torch.train.sharding.ShardingConfig` this
+        run was launched with (None when the trainer declared no GSPMD
+        layout).  Bind it to the live process group with
+        ``ray_tpu_torch.train.sharding.plan_from_context()`` — under elastic
+        training the mesh is rebuilt per generation, so the plan must be
+        rebuilt each time the loop (re)enters."""
+        return getattr(_get_session(), "sharding_config", None)
+
     def get_collective_group_name(self) -> Optional[str]:
         """Group name reserved for this training run's out-of-band
         collectives.  Loops that init a util.collective group under this

@@ -22,6 +22,23 @@ With more than one rank the gradients are all-reduced to their mean over
 the process group before each optimizer step, so every rank takes the
 step the whole batch gives.
 
+When the trainer carries a ``sharding_config``, the loop is the GSPMD
+plan's instead (``train/sharding/gspmd.py``): ``plan_from_context()``
+binds the config to a ``DeviceMesh`` over the group, ``shard_init``
+builds the model (the same weights as above) with each parameter and
+AdamW moment a DTensor on it, and ``jit_train_step`` runs the step.  Every
+rank then takes the whole global batch and keeps its window: the batch
+is ``config["tokens"]``, or, at world size 1, the dataset shard's
+batches laid over the mesh by
+``iter_device_batches(sharding=plan.data_sharding())`` (a split gives
+each rank other rows, so a multi-rank plan over a dataset is refused).  The metrics add the mesh, whether every parameter and moment
+holds the rule table's placements, and the batches' placements.  With
+``config["resume_at"]`` = k, a second model from the same seed replays
+the first k batches and saves a sharded checkpoint
+(``plan.save_checkpoint``); a fresh plan and a model from another seed
+load it and take the remaining steps, whose losses are reported as
+``resumed_losses`` (with ``replay_losses`` for the first k).
+
 It reports once, after the last step, through ``train.report``: every
 step's loss (averaged over the ranks), the mean time of the timed steps,
 tokens per second over all ranks, the model FLOPs utilisation a card against
@@ -87,17 +104,33 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = config["cfg"]
-    if config.get("state_dict") is not None:
-        model = gpt2.GPT2(cfg)
-        model.load_state_dict(config["state_dict"])
-        model = model.to(device)
+
+    def init_model(gen):
+        if config.get("state_dict") is not None:
+            model = gpt2.GPT2(cfg)
+            model.load_state_dict(config["state_dict"])
+            return model.to(device)
+        return gpt2.init_model(cfg, gen, device=device)
+
+    def make_optimizer(params):
+        return gpt2.make_adamw(params, lr=config["lr"])
+
+    def seeded(offset=0):
+        return torch.Generator(device=device).manual_seed(config.get("seed", 0) + offset)
+
+    plan = None
+    if ctx.get_sharding_config() is not None:
+        from ray_tpu_torch.train import sharding
+
+        plan = sharding.plan_from_context(device_type=device.type)
+        model, optimizer = plan.shard_init(init_model, make_optimizer, seeded())
+        step = plan.jit_train_step(gpt2.make_train_step(cfg, optimizer), model, optimizer)
     else:
-        gen = torch.Generator(device=device).manual_seed(config.get("seed", 0))
-        model = gpt2.init_model(cfg, gen, device=device)
-    optimizer = gpt2.make_adamw(model.parameters(), lr=config["lr"])
-    if world > 1:
-        optimizer.register_step_pre_hook(_allreduce_mean_grads)
-    step = gpt2.make_train_step(cfg, optimizer)
+        model = init_model(seeded())
+        optimizer = make_optimizer(model.parameters())
+        if world > 1:
+            optimizer.register_step_pre_hook(_allreduce_mean_grads)
+        step = gpt2.make_train_step(cfg, optimizer)
 
     warmup, steps = config.get("warmup", 0), config["steps"]
 
@@ -111,16 +144,24 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         if toks.shape[0] % world:
             raise ValueError(f"global batch {toks.shape[0]} does not split over {world} ranks")
         share = toks.shape[0] // world
-        local = toks[rank * share:(rank + 1) * share].to(device)
+        # the plan's step takes the global batch and keeps each rank's window
+        local = (toks if plan is not None else toks[rank * share:(rank + 1) * share]).to(device)
         global_batch = toks.shape[0]
 
         def next_batch():
             return local
     else:
-        global_batch = config["batch_size"] * world
+        if plan is not None and world > 1:
+            raise ValueError(
+                "a sharded loop takes the global batch on every rank, and "
+                "streaming_split gives each rank other rows: pass config['tokens'] "
+                "or train on one rank")
+        # under a plan each rank's batch is the global batch
+        global_batch = config["batch_size"] * (1 if plan is not None else world)
         batches = train.get_dataset_shard("train").iter_device_batches(
             batch_size=config["batch_size"], dtypes={"data": torch.int64}, device=device,
             drop_last=True, prefetch_batches=2,
+            sharding=plan.data_sharding() if plan is not None else None,
         )
         taken, waits = [], []
 
@@ -155,7 +196,7 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     launches = [fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
                 fa.flash_attention_dkv.launches]
     losses = torch.stack(losses)
-    if world > 1:
+    if world > 1 and plan is None:  # a plan's loss is the global batch's already
         dist.all_reduce(losses)
         losses /= world
     losses = losses.tolist()
@@ -166,13 +207,17 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         batches.close()  # stops the producer thread; the rest stays unread
         weights = torch.arange(1, seq_len + 2, dtype=torch.int64, device=device)
         timed_waits = waits[warmup:]
+        whole = [b.full_tensor() if plan is not None else b for b in taken]
         data = {
             "data_wait_ms": [w * 1e3 for w in waits],
             "data_wait_ms_mean": sum(timed_waits) / len(timed_waits) * 1e3,
             "data_wait_ms_max": max(timed_waits) * 1e3,
-            "fingerprints": [(b * weights).sum(dim=1).tolist() for b in taken],
+            "fingerprints": [(b * weights).sum(dim=1).tolist() for b in whole],
             "batch_kinds": sorted({(str(b.device), str(b.dtype)) for b in taken}),
         }
+        if plan is not None:
+            data["batch_placements"] = sorted({(type(b).__name__, str(b.device_mesh),
+                                                str(tuple(b.placements))) for b in taken})
     tok_s = global_batch * seq_len * steps / wall
     metrics = {
         "losses": losses,
@@ -192,7 +237,82 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     if device.type == "cuda":
         metrics["device_name"] = torch.cuda.get_device_name(device)
         metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    if plan is not None:
+        metrics.update(_plan_metrics(plan, model, optimizer))
+        if config.get("resume_at"):
+            del model, optimizer, step  # the card's memory goes to the next two
+            batches_run = taken if from_data else [local] * (warmup + steps)
+            metrics.update(_resume(plan, batches_run, config["resume_at"], cfg, init_model,
+                                   make_optimizer, seeded))
     ckpt = None
     if config.get("checkpoint") and rank == 0:
         ckpt = train.Checkpoint.from_pytree(model.state_dict())
     train.report(metrics, checkpoint=ckpt)
+
+
+def _plan_metrics(plan, model, optimizer) -> Dict[str, Any]:
+    """The mesh, and whether every parameter and AdamW moment is a DTensor
+    on it with the placements the plan's rules give the parameter."""
+    from torch.distributed.tensor import DTensor
+
+    want = plan.param_placements(model)
+    ok, moments_ok = True, True
+    for name, p in model.named_parameters():
+        on_mesh = isinstance(p, DTensor) and p.device_mesh == plan.mesh
+        ok = ok and on_mesh and list(p.placements) == list(want[name])
+        for key in ("exp_avg", "exp_avg_sq"):
+            m = optimizer.state[p].get(key)
+            moments_ok = moments_ok and isinstance(m, DTensor) and (
+                m.device_mesh == plan.mesh and m.placements == p.placements)
+    qkv = model.get_parameter("h_0.attn.qkv.weight")
+    return {
+        "mesh": dict(zip(plan.mesh.mesh_dim_names, plan.mesh.shape)),
+        "mesh_device_type": plan.mesh.device_type,
+        "params_on_rule_placements": ok,
+        "moments_follow_params": moments_ok,
+        "qkv_placements": str(tuple(qkv.placements)),
+        "qkv_local_shape": list(qkv.to_local().shape),
+    }
+
+
+def _resume(plan, batches, k: int, cfg, init_model, make_optimizer, seeded) -> Dict[str, Any]:
+    """Replay the first ``k`` batches on a second model from the same seed
+    and save a sharded checkpoint; load it into a fresh plan's model from
+    another seed and take the remaining batches."""
+    import os
+    import tempfile
+    import time
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import sharding
+
+    def run(plan, model, optimizer, batches):
+        """(losses, mean ms a step: the host clock to the losses' sync)"""
+        step = plan.jit_train_step(gpt2.make_train_step(cfg, optimizer), model, optimizer)
+        t = time.perf_counter()
+        losses = [step(model, b[:, :-1], b[:, 1:]) for b in batches]
+        losses = [x.item() for x in losses]
+        return losses, (time.perf_counter() - t) / len(batches) * 1e3
+
+    path = os.path.join(train.get_context().get_storage() or tempfile.gettempdir(),
+                        f"gspmd_step{k}")
+    model, optimizer = plan.shard_init(init_model, make_optimizer, seeded())
+    replay, replay_ms = run(plan, model, optimizer, batches[:k])
+    t = time.perf_counter()
+    plan.save_checkpoint(sharding.train_state(model, optimizer), path)
+    save_s = time.perf_counter() - t
+    del model, optimizer
+    fresh = sharding.plan_from_context(device_type=plan.mesh.device_type)
+    model, optimizer = fresh.shard_init(init_model, make_optimizer, seeded(1))
+    t = time.perf_counter()
+    like = sharding.train_state(model, optimizer)
+    sharding.set_train_state(model, optimizer, fresh.load_checkpoint(path, like))
+    load_s = time.perf_counter() - t
+    resumed, resumed_ms = run(fresh, model, optimizer, batches[k:])
+    return {"replay_losses": replay, "resumed_losses": resumed, "resume_at": k,
+            "replay_step_ms": replay_ms, "resumed_step_ms": resumed_ms,
+            "checkpoint_save_s": save_s, "checkpoint_load_s": load_s,
+            "checkpoint_bytes": sum(os.path.getsize(os.path.join(path, f))
+                                    for f in os.listdir(path)),
+            "checkpoint_path": path, "checkpoint_files": sorted(os.listdir(path))}

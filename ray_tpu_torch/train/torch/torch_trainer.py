@@ -4,8 +4,9 @@ counterpart of the JAX package's ``JaxTrainer``).
 DataParallelTrainer with the TorchConfig backend: each worker is one rank
 of a ``torch.distributed`` process group, and ``train_loop_per_worker``
 builds its model and optimizer and all-reduces its gradients over that
-group.  The reference's ``sharding_config`` (a GSPMD layout) waits for
-the port's sharded planes (ROADMAP Queue A item 4).
+group, or, with ``sharding_config``, binds the trainer's GSPMD layout to
+a ``DeviceMesh`` over the group (``train.sharding.plan_from_context()``)
+and trains DTensors on it.
 """
 
 from __future__ import annotations
@@ -31,7 +32,16 @@ class TorchTrainer(DataParallelTrainer):
         run_config: Optional[RunConfig] = None,
         datasets: Optional[Dict[str, Any]] = None,
         resume_from_checkpoint: Optional[Checkpoint] = None,
+        sharding_config: Optional[Any] = None,
     ):
+        """``sharding_config`` (a
+        :class:`ray_tpu_torch.train.sharding.ShardingConfig`) declares the
+        GSPMD layout for this run: a batch x model device mesh over the
+        worker group plus regex partition rules.  It travels to every
+        rank's session — inside the loop,
+        ``train.get_context().get_sharding_config()`` /
+        ``sharding.plan_from_context()`` bind it to the live process
+        group."""
         super().__init__(
             train_loop_per_worker,
             train_loop_config=train_loop_config,
@@ -41,9 +51,11 @@ class TorchTrainer(DataParallelTrainer):
             datasets=datasets,
             resume_from_checkpoint=resume_from_checkpoint,
         )
+        self.sharding_config = sharding_config
 
     def _constructor_state(self):
         state = super()._constructor_state()
         # This constructor names the backend config `torch_config`.
         state["torch_config"] = state.pop("backend_config")
+        state["sharding_config"] = self.sharding_config
         return state

@@ -189,12 +189,30 @@ def test_iter_device_batches(ray_cluster):
 
 
 def test_iter_device_batches_sharded(ray_cluster):
-    """A sharding waits for the port's DeviceMesh (ROADMAP Queue A item 4)."""
+    """With a sharding each batch arrives as a DTensor laid over the mesh
+    (the counterpart of iter_jax_batches(sharding=...)), with the rows
+    iter_batches gives: here on a one-process cpu mesh, whose default
+    process group the test takes down again.  tests/test_torch_sharded_train.py
+    holds each rank's window on a 4-rank mesh."""
+    import torch.distributed as dist
+
     import ray_tpu_torch.data as rd
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.parallel.sharding import NamedSharding
 
     ds = rd.range_tensor(64, shape=(4,), parallelism=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        ds.iter_device_batches(batch_size=16, sharding=object(), device="cpu")
+    want = [b["data"] for b in ds.iter_batches(batch_size=16, prefetch_batches=0)]
+    assert not dist.is_initialized()
+    try:
+        mesh = create_mesh({"dp": 1}, device_type="cpu")
+        got = [b["data"] for b in ds.iter_device_batches(
+            batch_size=16, sharding=NamedSharding(mesh, ("dp",)), dtypes={"data": torch.int64})]
+        assert [(type(t).__name__, str(tuple(t.placements))) for t in got] == [
+            ("DTensor", "(Shard(dim=0),)")] * 4
+        for t, w in zip(got, want):
+            np.testing.assert_array_equal(t.full_tensor().numpy(), w)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_file_roundtrip(ray_cluster, tmp_path):

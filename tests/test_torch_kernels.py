@@ -355,3 +355,48 @@ def test_gpt2_tiny_on_card_matches_cpu():
         assert _rel_err(results["cuda"][key], results["cpu"][key]) <= 1e-4, key
     for n in dict(cpu.named_parameters()):
         assert _rel_err(results["cuda"][n], results["cpu"][n]) <= 1e-3, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_block_noncausal_kernels_match_plain_on_card(dtype):
+    """Ring attention's off-diagonal step (ops/ring_attention.py): B1, B2
+    and B3 non-causal on one K/V block, the backward against a merged LSE
+    and Delta from two blocks, launched and held against the plain
+    versions (tolerances as above), and the ring's arithmetic for 4
+    emulated ranks against whole-sequence attention on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(2, 256, 4, 64, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    kb, vb = k[:, :128], v[:, :128]  # an earlier rank's block
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    o_b, lse_b = ra.block_forward(q[:, 128:], kb, vb, causal=False)
+    o_d, lse_d = ra.block_forward(q[:, 128:], k[:, 128:], v[:, 128:], causal=True)
+    o, lse = ra.merge(*ra.merge(None, None, o_d, lse_d), o_b, lse_b)
+    o = o.to(dt)
+    delta = fa._delta(o, do[:, 128:])
+    got = ra.block_backward(q[:, 128:], kb, vb, do[:, 128:], lse, delta, causal=False)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    ref_o, ref_lse = fa.flash_attention_fwd_reference(q[:, 128:], kb, vb, causal=False)
+    o_tol, l_tol = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 1e-3)
+    assert (o_b.float() - ref_o.float()).abs().max().item() <= o_tol
+    assert (lse_b - ref_lse).abs().max().item() <= l_tol
+    ref = (fa.flash_attention_dq_reference(q[:, 128:], kb, vb, do[:, 128:], lse, delta, False),
+           *fa.flash_attention_dkv_reference(q[:, 128:], kb, vb, do[:, 128:], lse, delta,
+                                             False))
+    for a, b in zip(got, ref):
+        assert _rel_err(a, b) <= BWD_TOL[dtype]
+    out, dq, dk, dv = ra.emulate_ring(q, k, v, do, 4)
+    whole_o, whole_lse = fa.flash_attention_fwd_reference(q, k, v)
+    whole = fa.flash_attention_bwd_reference(q, k, v, whole_o, whole_lse, do)
+    assert _row_rel_err(out, whole_o) <= (1e-4 if dt == torch.float32 else 2e-2)
+    for a, b in zip((dq, dk, dv), whole):
+        assert _rel_err(a, b) <= BWD_TOL[dtype]
