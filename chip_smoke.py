@@ -62,7 +62,10 @@ and prints no result line):
 13. vit, mlp    — each at its default config: an f32 AdamW step card vs
                   CPU, then 13 bf16 steps with a falling loss.
 14. moe         — MoEMLP at its default widths in float32: output, aux loss
-                  and gradients, card vs CPU.
+                  and gradients, card vs CPU; then the same weights placed
+                  by moe_sharding_rules() on a one-card {"ep": 1} mesh
+                  (the stacked experts Shard(0) over ep): output and aux
+                  loss equal to the unsharded card's bit for bit.
 15. runtime     — the port's actor runtime and trainer on the card:
                   ray_tpu_torch.init(num_cpus=4) reads GPU 1.0 from the
                   node's device files, and no runtime process but the
@@ -155,9 +158,12 @@ and prints no result line):
                   is a DTensor with the rule table's placements; B1 2 x 24,
                   B2 and B3 24 launches a step in the worker; every loss
                   equals phase 18's raw run to 1e-5 relative; each batch a
-                  DTensor on the card in Data's order; a sharded checkpoint
+                  DTensor on the card in Data's order; then the checkpoint
+                  drill on GPT-2 medium's widths at 2 layers (the same
+                  rows and seed): an unbroken run of 13 steps, a replay of
+                  steps 1 to 6 on a second model and a sharded checkpoint
                   at step 6 (plan.save_checkpoint) loaded into a fresh plan
-                  gives steps 7 to 13 equal to the unbroken run's to 1e-6;
+                  give steps 1 to 13 equal to the unbroken run's to 1e-6;
                   no port process after shutdown().  Then ring attention's
                   per-block path for 4 ranks emulated on the card at
                   [16, 1024, 16, 64] bf16: each non-causal B1/B2/B3 launch
@@ -165,8 +171,38 @@ and prints no result line):
                   version (with a planted fault), the merged O and the
                   gradients against B1-B3 causal over the whole T; then the
                   three non-causal at the ring block, timed.
+20. pipeline    — the pipeline planes, under a cluster of their own: (a)
+                  GPT-2 medium's widths at 4 layers in f32, B=16 as 4
+                  microbatches, T=1024, PipelinePlane(stages=2) with both
+                  stage actors on the card: 3 steps, each loss equal to an
+                  unpipelined f32 step's in the driver from the same
+                  weights and rows to 1e-4 relative; the kill drill (stage
+                  1 killed after step 3, a checkpoint every 2 steps, one
+                  restart) lands within 2e-5 of an unbroken run's losses;
+                  (b) the slice's main path: GPT-2 medium (24 layers, f32
+                  params, bf16 compute) from phase 18's weights and rows,
+                  8 steps of PipelinePlane.run over two stage actors that
+                  lease half the card each, 1F1B through B1, B2 and B3,
+                  activations and gradients over ring channels: launches
+                  (96, 48, 48) a step in stage 0 (its B recomputes the
+                  forward) and (48, 48, 48) in stage 1, 0 in the driver;
+                  finite, falling losses, step 1's equal to phase 18's raw
+                  first loss to 1e-3 relative and the rest within
+                  PP_LOSS_TOL of the raw run's; step time, tokens/s, MFU,
+                  each stage's busy time, bubble and peak memory; no ring
+                  directory after stop(), no port process after
+                  shutdown(); (c) B1, B2, B3 at the microbatch's [4, 1024,
+                  16, 64] bf16 causal held against their plain versions
+                  and timed; (d) the SPMD pipeline at GPT-2 medium's
+                  widths (8 layers, f32, B=4, T=1024): make_pp_loss_fn at
+                  pp=4, M=4 and make_pp_loss_fn_interleaved at pp=4, v=2,
+                  M=4 emulated on the card, and make_pp_loss_fn on a
+                  one-card {"pp": 1} mesh, against the unpipelined loss
+                  (1e-4 relative) and gradients (1e-3 of each tensor's
+                  max).
 
-The last lines are the kernels' JSON record, the card's name and power
+Every phase's seconds are printed ([timing]) as it ends, and all of them
+with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 
@@ -179,6 +215,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1400,14 +1437,53 @@ def phase_moe(card: str) -> dict:
     grad_err = max(_rel(c[n], r[n])[1] for n in c if n not in ("out", "aux"))
     ok = out_err <= 1e-4 and aux_err <= 1e-4 and grad_err <= 1e-3
     res = {"out_err_over_max": out_err, "aux_cuda": c["aux"], "aux_cpu": r["aux"],
-           "aux_rel_err": aux_err, "grad_err_over_max": grad_err, "card": card}
+           "aux_rel_err": aux_err, "grad_err_over_max": grad_err, "card": card,
+           "ep_mesh": _moe_on_ep_mesh(cpu, x)}
     print(f"[moe] MoEMLP f32 (d 128, d_ff 256, 8 experts, top 2) x [4, 256, 128], card vs CPU: "
           f"out max|err|/max {out_err:.2e} (tol 1e-4); aux {c['aux']:.6f} vs {r['aux']:.6f} "
           f"(rel {aux_err:.2e}, tol 1e-4); grads max|err|/max|g| {grad_err:.2e} (tol 1e-3) "
           f"{'ok' if ok else 'FAIL'} — {card}", flush=True)
+    ep = res["ep_mesh"]
+    print(f"[moe] the same weights placed by moe_sharding_rules() on a one-card {{'ep': 1}} mesh: "
+          f"specs {ep['specs']}, placements {ep['placements']}; output and aux loss equal to the "
+          f"unsharded card's bit for bit: {ep['bit_equal']} — {card}", flush=True)
     if not ok:
         raise AssertionError(f"MoE parity failed: {res}")
+    if not ep["bit_equal"] or ep["specs"]["experts_gate"][0] != "ep":
+        raise AssertionError(f"MoE under moe_sharding_rules(): {ep}")
     return res
+
+
+def _moe_on_ep_mesh(cpu_model, x) -> dict:
+    """The MoE forward with its parameters placed by moe_sharding_rules()
+    on a one-card {"ep": 1} mesh (the stacked experts Shard(0) over ep,
+    the router replicated), against the same weights unsharded on the
+    card."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.parallel.sharding import infer_param_spec, shard_module
+
+    formed = not dist.is_initialized()
+    mesh = create_mesh({"ep": 1}, device_type="cuda")
+    try:
+        plain = copy.deepcopy(cpu_model).to("cuda")
+        sharded = copy.deepcopy(cpu_model).to("cuda")
+        specs = infer_param_spec(sharded, moe.moe_sharding_rules(), mesh)
+        shard_module(sharded, mesh, specs)
+        xx = x.to("cuda")
+        with torch.no_grad():
+            out, aux = plain(xx)
+            with implicit_replication():
+                s_out, s_aux = sharded(xx)
+        s_out, s_aux = (t.full_tensor() if hasattr(t, "full_tensor") else t for t in (s_out, s_aux))
+        return {"specs": specs,
+                "placements": {n: str(tuple(p.placements)) for n, p in sharded.named_parameters()},
+                "bit_equal": bool(torch.equal(s_out, out) and torch.equal(s_aux, aux))}
+    finally:
+        if formed:
+            dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------------
@@ -1931,7 +2007,7 @@ def _serve_http(tag: str, card: str, engine_serve: dict, refs: dict, port: int,
     return res
 
 
-_RING_PREFIXES = ("ray_tpu_torch_serve_", "ray_tpu_torch_dag_")
+_RING_PREFIXES = ("ray_tpu_torch_serve_", "ray_tpu_torch_dag_", "ray_tpu_torch_pp")
 
 
 def _ring_dirs() -> list:
@@ -2533,6 +2609,9 @@ def phase_data(card: str) -> dict:
 # resume, and ring attention's per-block path for emulated ranks
 # ----------------------------------------------------------------------
 RING_N = 4  # emulated ranks of the ring: [16, 1024] splits into blocks of 256
+# the checkpoint drill's model: GPT-2 medium's widths at 2 of its 24 layers
+# (a 1.5 GB checkpoint where the whole model's is 4.9 GB)
+RESUME_AT, RESUME_LAYERS = 6, 2
 
 
 def _ring_hold(q, k, v, do) -> dict:
@@ -2611,7 +2690,7 @@ def phase_sharded(card: str, data: dict) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = gpt2.GPT2Config.medium(param_dtype=torch.float32)
-    n, resume_at = TRAIN_WARMUP + TRAIN_STEPS, 6
+    n, resume_at = TRAIN_WARMUP + TRAIN_STEPS, RESUME_AT
     want = [2 * cfg.n_layer * n, cfg.n_layer * n, cfg.n_layer * n]
     raw = data["raw"]
     res = {"card": card, "config": f"GPT-2 medium, f32 params, bf16 compute, remat, "
@@ -2632,7 +2711,8 @@ def phase_sharded(card: str, data: dict) -> dict:
                     train_loop_config={"cfg": cfg, "seed": 0, "lr": TRAIN_LR,
                                        "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
                                        "batch_size": DATA_B, "device": "cuda",
-                                       "peak_flops": PEAK_BF16_FLOPS, "resume_at": resume_at},
+                                       "peak_flops": PEAK_BF16_FLOPS, "resume_at": resume_at,
+                                       "resume_layers": RESUME_LAYERS},
                     datasets={"train": rd.read_numpy(root)},
                     scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
                     run_config=RunConfig(name="gpt2_medium_sharded", storage_path=storage),
@@ -2653,8 +2733,9 @@ def phase_sharded(card: str, data: dict) -> dict:
     losses = m["losses"]
     same_rows = bool(np.array_equal(rows, data["rows"][:len(rows)]))
     rels = [abs(a - b) / abs(b) for a, b in zip(losses, raw["losses"])]
-    replay = [abs(a - b) / abs(b) for a, b in zip(m["replay_losses"], losses[:resume_at])]
-    resumed = [abs(a - b) / abs(b) for a, b in zip(m["resumed_losses"], losses[resume_at:])]
+    unbroken = m["unbroken_losses"]  # the drill's model, every batch from the seed
+    replay = [abs(a - b) / abs(b) for a, b in zip(m["replay_losses"], unbroken[:resume_at])]
+    resumed = [abs(a - b) / abs(b) for a, b in zip(m["resumed_losses"], unbroken[resume_at:])]
     fp_ok = m["fingerprints"] == [_fingerprints(b) for b in ordered]
     res["trainer"] = {k: v for k, v in m.items() if k != "fingerprints"}
     res.update(loss_rel_err_vs_raw=max(rels), replay_rel_err=max(replay),
@@ -2672,13 +2753,15 @@ def phase_sharded(card: str, data: dict) -> dict:
           f"{m['peak_memory_gb']:.2f} GB; losses vs the raw run's max rel {max(rels):.2e} (tol "
           f"1e-5); launches B1/B2/B3 in the worker {m['launches']} (want {want}), the driver's "
           f"during fit() {res['driver_launches_during_fit']} — {card}", flush=True)
-    print(f"[sharded] checkpoint at step {resume_at} ({m['checkpoint_files']}, "
-          f"{m['checkpoint_bytes'] / 1e9:.3f} GB; save {m['checkpoint_save_s']:.1f} s, load "
-          f"{m['checkpoint_load_s']:.1f} s): replayed steps 1..{resume_at} max rel "
-          f"{max(replay):.2e} at {m['replay_step_ms']:.2f} ms a step, steps {resume_at + 1}..{n} "
-          f"after loading into a fresh plan max rel {max(resumed):.2e} (tol 1e-6) at "
-          f"{m['resumed_step_ms']:.2f} ms a step (both without the data iterator); fit() and "
-          f"resume took {res['fit_seconds']:.1f} s; after shutdown() port processes left "
+    print(f"[sharded] checkpoint drill on GPT-2 medium's widths at {m['resume_layers']} layers "
+          f"(the same rows and seed, without the data iterator): an unbroken run of {n} steps "
+          f"at {m['unbroken_step_ms']:.2f} ms a step; checkpoint at step {resume_at} "
+          f"({m['checkpoint_files']}, {m['checkpoint_bytes'] / 1e9:.3f} GB; save "
+          f"{m['checkpoint_save_s']:.1f} s, load {m['checkpoint_load_s']:.1f} s): replayed steps "
+          f"1..{resume_at} max rel {max(replay):.2e} at {m['replay_step_ms']:.2f} ms a step, steps "
+          f"{resume_at + 1}..{n} after loading into a fresh plan max rel {max(resumed):.2e} (tol "
+          f"1e-6) at {m['resumed_step_ms']:.2f} ms a step, both against the unbroken run; fit() "
+          f"and the drill took {res['fit_seconds']:.1f} s; after shutdown() port processes left "
           f"{sorted(left)}", flush=True)
     if not (m["params_on_rule_placements"] and m["moments_follow_params"]
             and m["mesh"] == {"batch": 1, "model": 1} and m["mesh_device_type"] == "cuda"):
@@ -2688,9 +2771,10 @@ def phase_sharded(card: str, data: dict) -> dict:
                              f"{res['driver_launches_during_fit']} in the driver")
     if len(losses) != n or max(rels) > 1e-5 or not same_rows:
         raise AssertionError(f"sharded losses {losses} != raw {raw['losses']}")
-    if max(replay) > 1e-6 or max(resumed) > 1e-6:
+    if (max(replay) > 1e-6 or max(resumed) > 1e-6 or len(unbroken) != n
+            or m["resume_layers"] != RESUME_LAYERS):
         raise AssertionError(f"resume: replay {m['replay_losses']}, resumed "
-                             f"{m['resumed_losses']} vs {losses}")
+                             f"{m['resumed_losses']} vs unbroken {unbroken}")
     if not fp_ok or [(kind, pl) for kind, _, pl in m["batch_placements"]] != [
             ("DTensor", "(Replicate(), Replicate())")] or "'cuda'" not in m["batch_placements"][0][1]:
         raise AssertionError(f"batches: fingerprints equal {fp_ok}, {m['batch_placements']}")
@@ -2749,44 +2833,430 @@ def phase_sharded(card: str, data: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# The pipeline planes: GPT-2 medium over a two-stage MPMD pipeline of GPU
+# stage actors sharing the card, the kernels at its microbatch, and the
+# SPMD pipeline's schedule at GPT-2 medium's widths
+# ----------------------------------------------------------------------
+PP_STAGES, PP_M, PP_STEPS = 2, 4, 8  # the bf16 run: 2 stages, 4 microbatches, 8 steps
+PP_WARMUP = 2  # the first steps hold the stages' warm-up (allocator, cuBLAS): not timed
+PP_PARITY_LAYERS, PP_PARITY_STEPS, PP_DRILL_STEPS = 4, 3, 5
+# one activation frame is [4, 1024, 1024] f32, 16 MiB; 1F1B keeps up to
+# `stages` frames in flight on an edge
+PP_RING = 80 << 20
+# a step's result deadline: a plane's first step holds its stages' warm-up
+# (up to 10 s in one H100 machine's run); a killed stage costs this wait
+PP_STEP_TIMEOUT_S = 20.0
+# The bf16 run's losses after step 1 against phase 18's raw run on the same
+# weights and rows: the microbatches' matmuls round in bf16 at other shapes
+# ([4, 1024] rows against [16, 1024]), so every gradient differs from the
+# raw step's by bf16 rounding, and AdamW's normalised update moves each
+# weight by about lr whatever its gradient's size; over 8 steps at lr 3e-4
+# the loss drifts apart by far less than the 0.1 a step it falls, and 1e-2
+# relative bounds that drift while a step that lost or doubled a
+# microbatch's gradient departs by more
+PP_LOSS_TOL = 1e-2
+
+
+def _pp_program(cfg, host: dict):
+    """The GPT-2 stage programs starting from ``host`` (CPU tensors of the
+    model's parameters)."""
+    from ray_tpu_torch.train.sharding import gpt2_pipeline_programs
+
+    return dataclasses.replace(gpt2_pipeline_programs(cfg, PP_STAGES, lr=TRAIN_LR),
+                               init_params=functools.partial(dict, host))
+
+
+def _pp_data_fn(rows: np.ndarray, marks: list = None, hook=None):
+    def data_fn(step: int):
+        if marks is not None:
+            marks.append(time.perf_counter())
+        if hook is not None:
+            hook(step)
+        b = rows[step * DATA_B:(step + 1) * DATA_B]
+        return b[:, :-1], b[:, 1:]
+
+    return data_fn
+
+
+def _timed_methods(plane, names=("_distribute_state", "checkpoint", "_teardown")) -> dict:
+    """Wrap ``names`` of ``plane`` to add up each one's wall seconds in the
+    returned dict (where a plane's start, drill and restart spend it)."""
+    spent = {}
+    for name in names:
+        def wrap(*a, _f=getattr(plane, name), _n=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _f(*a, **kw)
+            finally:
+                spent[_n] = spent.get(_n, 0.0) + time.perf_counter() - t
+        setattr(plane, name, wrap)
+    return spent
+
+
+def _pp_rings() -> list:
+    from ray_tpu_torch.experimental.channel import ring_base_dir
+
+    return sorted(n for n in os.listdir(ring_base_dir()) if n.startswith("ray_tpu_torch_pp"))
+
+
+def _pp_f32_parity(card: str, rows: np.ndarray) -> dict:
+    """(a) GPT-2 medium's widths at PP_PARITY_LAYERS layers in f32: two
+    stages on the card from the weights and rows of an unbroken,
+    unpipelined f32 run in the driver; PP_PARITY_STEPS steps, each loss
+    equal to the driver's to 1e-4 relative; then the kill drill (stage 1
+    killed after step 3, a checkpoint every 2 steps, one restart that
+    replays steps 3 to 5): every loss within 2e-5 absolute of the
+    unbroken run's, the reference drill's limit."""
+    from ray_tpu_torch.train.sharding import PipelineConfig, PipelinePlane
+
+    cfg = dataclasses.replace(gpt2.GPT2Config.medium(dtype=torch.float32),
+                              n_layer=PP_PARITY_LAYERS)
+    model = gpt2.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    host = {k: v.detach().to("cpu", copy=True) for k, v in model.named_parameters()}
+    step = gpt2.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr=TRAIN_LR))
+    batches = torch.from_numpy(rows[:PP_DRILL_STEPS * DATA_B].astype(np.int64)).to("cuda")
+    ref = [step(model, b[:, :-1], b[:, 1:]).item()
+           for b in batches.view(PP_DRILL_STEPS, DATA_B, -1)]
+    del model, step, batches
+    torch.cuda.empty_cache()
+    pcfg = PipelineConfig(stages=PP_STAGES, microbatches=PP_M, ring_capacity=PP_RING,
+                          step_timeout_s=PP_STEP_TIMEOUT_S, checkpoint_every=2, max_restarts=1)
+    data_fn = _pp_data_fn(rows)
+    plane = PipelinePlane(_pp_program(cfg, host), pcfg)
+    spent = _timed_methods(plane)
+    t0 = time.perf_counter()
+    try:
+        plane.start()
+        start_s = time.perf_counter() - t0
+        part = plane.run(data_fn, PP_PARITY_STEPS)  # the checkpoint landed at step 2
+        run_s = time.perf_counter() - t0 - start_s
+        ray_tpu_torch.kill(plane.actors[1])  # step 3 is not checkpointed
+        t1 = time.perf_counter()
+        rest = plane.run(data_fn, PP_DRILL_STEPS)  # restarts, replays steps 3..5
+        recover_s = time.perf_counter() - t1
+        restarts = plane.restarts
+    finally:
+        t1 = time.perf_counter()
+        plane.stop()
+        stop_s = time.perf_counter() - t1
+    drill = [part[i] if i < 2 else rest[i] for i in range(PP_DRILL_STEPS)]
+    rels = [abs(a - b) / abs(b) for a, b in zip(part, ref)]
+    drill_err = max(abs(a - b) for a, b in zip(drill, ref))
+    res = {"ref_losses": ref, "losses": part, "drill_losses": drill,
+           "loss_rel_err": max(rels), "drill_abs_err": drill_err, "restarts": restarts,
+           "rings_after_stop": _pp_rings(),
+           "seconds": {"start": start_s, "run": run_s, "kill_to_recovered": recover_s,
+                       "stop": stop_s, **spent}}
+    print(f"[pipeline] (a) GPT-2 medium widths, {PP_PARITY_LAYERS} layers, f32, B={DATA_B}, "
+          f"T={TRAIN_T}, {PP_STAGES} stages x M={PP_M} on the card: losses {part} vs the "
+          f"driver's unbroken unpipelined f32 run {ref}, max rel {max(rels):.2e} (tol 1e-4); "
+          f"kill drill (stage 1 killed after step {PP_PARITY_STEPS}, checkpoint every 2): "
+          f"restarts {restarts}, losses {drill}, max abs {drill_err:.2e} from the unbroken run's "
+          f"(tol 2e-5); ring dirs after stop() {res['rings_after_stop']}; seconds "
+          f"{ {k: round(v, 1) for k, v in res['seconds'].items()} } — {card}", flush=True)
+    if max(rels) > 1e-4 or restarts != 1 or drill_err > 2e-5 or res["rings_after_stop"]:
+        raise AssertionError(f"the f32 pipeline or its kill drill failed: {res}")
+    return res
+
+
+def _pp_main_path(card: str, data: dict) -> dict:
+    """(b) GPT-2 medium (f32 params, bf16 compute, 24 layers) over two
+    GPU stage actors sharing the card: phase 18's initial weights and
+    rows, B=16 (M=4), T=1024, PP_STEPS steps through PipelinePlane.run;
+    the launch counts set to 0 in the driver just before and read in each
+    stage (fresh processes) just after."""
+    from ray_tpu_torch.train.sharding import PipelineConfig, PipelinePlane
+
+    cfg = gpt2.GPT2Config.medium(param_dtype=torch.float32)
+    model = gpt2.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    host = {k: v.detach().to("cpu", copy=True) for k, v in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in host.values())
+    shm = shutil.disk_usage("/dev/shm")
+    if shm.free < 2 * nbytes + 4 * PP_RING:
+        raise AssertionError(f"/dev/shm has {shm.free / 1e9:.2f} GB free; the weight broadcast "
+                             f"needs {2 * nbytes / 1e9:.2f} GB")
+    leases = {}
+
+    def look(step):  # mid-run: the stages hold their GPU leases
+        if step == PP_STEPS // 2:
+            from ray_tpu_torch.util.placement_group import placement_group_table
+
+            leases["available_gpu"] = ray_tpu_torch.available_resources().get("GPU", 0.0)
+            leases["cluster_gpu"] = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+            leases["bundles"] = [[b["resources"] for b in pg["bundles"]]
+                                 for pg in placement_group_table() if pg["state"] == "CREATED"]
+
+    marks = []
+    plane = PipelinePlane(_pp_program(cfg, host), PipelineConfig(
+        stages=PP_STAGES, microbatches=PP_M, ring_capacity=PP_RING, step_timeout_s=120.0))
+    spent = _timed_methods(plane)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        plane.start()
+        start_s = time.perf_counter() - t0
+        losses = plane.run(_pp_data_fn(data["rows"], marks, look), PP_STEPS)
+        marks.append(time.perf_counter())
+        stats = plane.stage_stats()
+        driver_launches = list(_launch_counts())
+    finally:
+        t1 = time.perf_counter()
+        plane.stop()
+        stop_s = time.perf_counter() - t1
+    rings = _pp_rings()
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    step_ms = statistics.mean(step_s[PP_WARMUP:]) * 1e3
+    tok_s = DATA_B * TRAIN_T / (step_ms / 1e3)
+    mfu = tok_s * gpt2.flops_per_token(cfg, TRAIN_T) / PEAK_BF16_FLOPS
+    per = cfg.n_layer // PP_STAGES
+    want = [[2 * per * PP_M * PP_STEPS, per * PP_M * PP_STEPS, per * PP_M * PP_STEPS],
+            [per * PP_M * PP_STEPS] * 3]  # stage 0 recomputes its forward in B
+    raw = data["raw"]["losses"]
+    first_rel = abs(losses[0] - raw[0]) / abs(raw[0])
+    later = [abs(a - b) / abs(b) for a, b in zip(losses[1:], raw[1:PP_STEPS])]
+    act_bytes = 2 * DATA_B * TRAIN_T * cfg.d_model * 4  # each microbatch's f32 frame down, its gradient up
+    res = {"losses": losses, "raw_losses": raw[:PP_STEPS], "first_loss_rel_err": first_rel,
+           "later_loss_rel_err": max(later), "step_ms_all": [x * 1e3 for x in step_s],
+           "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu, "stats": stats,
+           "launches_by_stage": [s["launches"] for s in stats], "want_launches": want,
+           "driver_launches": driver_launches, "leases": leases,
+           "activation_bytes_per_step": act_bytes, "rings_after_stop": rings,
+           "shm_free_gb": shm.free / 1e9, "broadcast_gb": nbytes / 1e9,
+           "seconds": {"start": start_s, "steps": marks[-1] - marks[0], "stop": stop_s, **spent}}
+    print(f"[pipeline] (b) GPT-2 medium (f32 params, bf16 compute, 24 layers) over "
+          f"PipelinePlane(stages={PP_STAGES}, microbatches={PP_M}) on the card, phase 18's "
+          f"weights and rows: losses {[round(x, 5) for x in losses]}; step 1 vs phase 18's raw "
+          f"first loss {raw[0]:.5f} rel {first_rel:.2e} (tol 1e-3), steps 2..{PP_STEPS} vs the "
+          f"raw run's max rel {max(later):.2e} (tol {PP_LOSS_TOL:g}) — {card}", flush=True)
+    print(f"[pipeline] (b) step {step_ms:.2f} ms (mean of steps {PP_WARMUP + 1}..{PP_STEPS}; all "
+          f"{[round(x * 1e3, 1) for x in step_s]}) against phase 18's raw step "
+          f"{data['raw']['step_ms']:.2f} ms (remat), {tok_s:.0f} tok/s, MFU {mfu:.4f}; per "
+          f"stage busy s {[round(s['busy_s'], 3) for s in stats]}, wall s "
+          f"{[round(s['wall_s'], 3) for s in stats]}, last step's bubble fraction "
+          f"{[round(s['bubble_fraction'], 4) for s in stats]}, peak memory GB "
+          f"{[round(s.get('peak_memory_gb', 0.0), 2) for s in stats]}; activations "
+          f"{act_bytes / 1e6:.1f} MB a step over the rings; weight broadcast "
+          f"{nbytes / 1e9:.2f} GB, /dev/shm free {shm.free / 1e9:.1f} GB; seconds "
+          f"{ {k: round(v, 1) for k, v in res['seconds'].items()} } — {card}", flush=True)
+    print(f"[pipeline] (b) launches B1/B2/B3 by stage {res['launches_by_stage']} (want {want}), "
+          f"the driver's {driver_launches}; mid-run GPU available {leases.get('available_gpu')} "
+          f"of {leases.get('cluster_gpu')}, bundles {leases.get('bundles')}; ring dirs after "
+          f"stop() {rings}", flush=True)
+    lease = {"CPU": 1.0, "GPU": 1.0 / PP_STAGES}
+    if res["launches_by_stage"] != want or driver_launches != [0, 0, 0]:
+        raise AssertionError(f"launches {res['launches_by_stage']} (want {want}), driver "
+                             f"{driver_launches}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"pipeline losses not finite and falling: {losses}")
+    if first_rel > 1e-3 or max(later) > PP_LOSS_TOL:
+        raise AssertionError(f"pipeline losses {losses} vs raw {raw[:PP_STEPS]}")
+    if (abs(leases.get("available_gpu", 1.0)) > 1e-9 or leases.get("cluster_gpu") != 1.0
+            or leases.get("bundles") != [[lease] * PP_STAGES]):
+        raise AssertionError(f"the stages' GPU leases: {leases}")
+    if rings:
+        raise AssertionError(f"ring dirs after stop(): {rings}")
+    return res
+
+
+def _pp_interleaved_grads(first, chunks, last, cfg, pp, v) -> dict:
+    """The interleaved trees' gradients by the model's parameter names."""
+    per = cfg.n_layer // (pp * v)
+    out = {k: t.grad for k, t in (*first.items(), *last.items())}
+    for name, t in chunks.items():
+        for d in range(pp):
+            for lap in range(v):
+                for i in range(per):
+                    out[f"h_{(d + lap * pp) * per + i}.{name}"] = t.grad[d, lap, i]
+    return out
+
+
+def _pp_spmd(card: str, rows: np.ndarray) -> dict:
+    """(d) The SPMD pipeline on the card: GPT-2 medium's widths at 8
+    layers, f32, B=4, T=1024; make_pp_loss_fn at pp=4, M=4 and
+    make_pp_loss_fn_interleaved at pp=4, v=2, M=4 emulated on the card,
+    and make_pp_loss_fn on a one-card {"pp": 1} mesh (the real-rank
+    transport), each against the unpipelined f32 loss (1e-4 relative) and
+    its gradients (each to 1e-3 of its tensor's largest entry)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2_pp
+    from ray_tpu_torch.parallel import create_mesh
+
+    cfg = dataclasses.replace(gpt2.GPT2Config.medium(dtype=torch.float32), n_layer=8)
+    model = gpt2.init_model(cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    toks = torch.from_numpy(rows[:4].astype(np.int64)).to("cuda")
+    x, y = toks[:, :-1], toks[:, 1:]
+    ref = gpt2.loss_fn(model, x, y)
+    ref.backward()
+    ref_grads = {n: p.grad for n, p in model.named_parameters()}
+    params = {n: p.detach() for n, p in model.named_parameters()}
+
+    def held(loss, grads) -> dict:
+        return {"loss": loss.item(), "loss_rel_err": abs(loss.item() - ref.item()) / abs(ref.item()),
+                "grad_err_over_max": max(_rel(grads[n], g)[1] for n, g in ref_grads.items())}
+
+    def leaves(*trees):
+        """Each tree with fresh leaf copies that collect gradients."""
+        return [{k: t.detach().clone().requires_grad_(True) for k, t in tree.items()}
+                for tree in trees]
+
+    out = {"ref_loss": ref.item()}
+    _reset_counts()
+    sp, rest = leaves(*gpt2_pp.split_pipeline_params(params, cfg, 4))
+    loss = gpt2_pp.make_pp_loss_fn(cfg, 4, n_micro=4)(sp, rest, x, y)
+    loss.backward()
+    out["emulated_pp4"] = held(loss, gpt2_pp.merge_pipeline_params(
+        {k: t.grad for k, t in sp.items()}, {k: t.grad for k, t in rest.items()}, cfg))
+    out["emulated_pp4"]["launches"] = list(_launch_counts())
+    del sp, rest, loss
+    first, chunks, last = leaves(*gpt2_pp.split_pipeline_params_interleaved(params, cfg, 4, 2))
+    loss = gpt2_pp.make_pp_loss_fn_interleaved(cfg, 4, n_micro=4, n_virtual=2)(
+        first, chunks, last, x, y)
+    loss.backward()
+    out["emulated_interleaved_pp4_v2"] = held(loss, _pp_interleaved_grads(first, chunks, last,
+                                                                        cfg, 4, 2))
+    del first, chunks, last, loss
+    formed = not dist.is_initialized()
+    mesh = create_mesh({"pp": 1}, device_type="cuda")
+    try:
+        sp, rest = leaves(*gpt2_pp.split_pipeline_params(params, cfg, 1))
+        loss = gpt2_pp.make_pp_loss_fn(cfg, mesh, n_micro=4)(sp, rest, x, y)
+        loss.backward()
+        out["ranks_pp1"] = held(loss, gpt2_pp.merge_pipeline_params(
+            {k: t.grad for k, t in sp.items()}, {k: t.grad for k, t in rest.items()}, cfg))
+        out["ranks_pp1"]["backend"] = dist.get_backend(mesh.get_group("pp"))
+    finally:
+        if formed:
+            dist.destroy_process_group()
+    del model, params, ref_grads
+    torch.cuda.empty_cache()
+    print(f"[pipeline] (d) SPMD pipeline, GPT-2 medium widths at 8 layers, f32, B=4, T={TRAIN_T}, "
+          f"unpipelined loss {out['ref_loss']:.6f}: emulated pp=4 M=4 {out['emulated_pp4']}; "
+          f"emulated interleaved pp=4 v=2 M=4 {out['emulated_interleaved_pp4_v2']}; real-rank "
+          f"transport on a one-card pp=1 mesh {out['ranks_pp1']} (tol: loss 1e-4 relative, "
+          f"gradients 1e-3 of each tensor's max) — {card}", flush=True)
+    for key in ("emulated_pp4", "emulated_interleaved_pp4_v2", "ranks_pp1"):
+        if out[key]["loss_rel_err"] > 1e-4 or out[key]["grad_err_over_max"] > 1e-3:
+            raise AssertionError(f"the SPMD pipeline ({key}) disagrees: {out[key]}")
+    # 8 layers, 4 microbatches: B1 once a layer a microbatch, B2 and B3 as many
+    if out["emulated_pp4"]["launches"] != [32, 32, 32]:
+        raise AssertionError(f"emulated pipeline launches {out['emulated_pp4']['launches']}")
+    return out
+
+
+def phase_pipeline(card: str, data: dict) -> dict:
+    """The pipeline planes: (a) the f32 parity and kill drill, (b) the
+    slice's main path, bf16 GPT-2 medium over two GPU stage actors, under
+    a cluster of their own; (c) B1, B2 and B3 at the microbatch's
+    [4, 1024, 16, 64] bf16 causal, held against their plain versions and
+    timed; (d) the SPMD pipeline on the card."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = {"card": card}
+    parts = res["seconds_by_part"] = {}
+    ray_tpu_torch.init(num_cpus=4)
+    parts["init"] = time.perf_counter() - t0
+    try:
+        res["f32"] = _pp_f32_parity(card, data["rows"])
+        parts["f32"] = time.perf_counter() - t0 - sum(parts.values())
+        res["main"] = _pp_main_path(card, data)
+        parts["main"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 20
+    left = _port_processes()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left = _port_processes()
+    res["processes_left"] = left
+    parts["shutdown"] = time.perf_counter() - t0 - sum(parts.values())
+    print(f"[pipeline] after shutdown(): port processes left {sorted(left)}", flush=True)
+    if left:
+        raise AssertionError(f"left after shutdown(): processes {left}")
+
+    # (c) the kernels at the microbatch: q/k/v views of the fused qkv
+    cfg = gpt2.GPT2Config.medium()
+    B, T, H, D = DATA_B // PP_M, TRAIN_T, cfg.n_head, cfg.d_head
+    g = torch.Generator(device="cuda").manual_seed(600)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    errs = _hold_bf16_kernels("pipeline kernels", "microbatch shape", "fused", q, k, v, do)
+    recs = _time_bf16_kernels("pipeline kernels", "pipeline microbatch", q, k, v, do, errs, card,
+                              sleep_cycles=50_000_000)
+    by_stage = res["main"]["launches_by_stage"]
+    for i, rec in enumerate(recs):
+        rec["launches"] = sum(stage[i] for stage in by_stage)
+        rec["launches_by_stage"] = [stage[i] for stage in by_stage]
+    res["kernels"] = recs
+    del q, k, v, do, qkv
+    parts["kernels"] = time.perf_counter() - t0 - sum(parts.values())
+
+    res["spmd"] = _pp_spmd(card, data["rows"])
+    parts["spmd"] = time.perf_counter() - t0 - sum(parts.values())
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[pipeline] phase took {res['seconds']:.1f} s: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
+    print("[pipeline] " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
-    card = phase_device()
-    phase_build()
-    fwd_rec = phase_kernels(card)
-    train_recs = phase_bwd_kernels(card)
-    phase_host_cost(card)
-    llama_recs = phase_llama_kernels(card)
-    phase_parity(card)
-    serve = phase_serve(card)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall time printed and kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[timing] {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    card = timed("device", phase_device)
+    timed("build", phase_build)
+    fwd_rec = timed("kernels", phase_kernels, card)
+    train_recs = timed("bwd kernels", phase_bwd_kernels, card)
+    timed("host cost", phase_host_cost, card)
+    llama_recs = timed("llama kernels", phase_llama_kernels, card)
+    timed("parity", phase_parity, card)
+    serve = timed("serve", phase_serve, card)
     fwd_rec["launches"] = serve["flash_launches"]
-    phase_profile(card)
-    train_parity = phase_train_parity(card)
-    train = phase_train(card)
+    timed("profile", phase_profile, card)
+    train_parity = timed("train parity", phase_train_parity, card)
+    train = timed("train", phase_train, card)
     for rec in train_recs:
         rec["launches"] = train["launches"][rec["name"]]
-    phase_llama_parity(card)
-    llama_train = phase_llama_train(card)
+    timed("llama parity", phase_llama_parity, card)
+    llama_train = timed("llama train", phase_llama_train, card)
     for rec in llama_recs:
         rec["launches"] = llama_train["launches"][rec["name"]]
-    phase_resnet(card)
-    phase_vit(card)
-    phase_mlp(card)
-    phase_moe(card)
-    runtime = phase_runtime(card, train_parity, train)
+    timed("resnet", phase_resnet, card)
+    timed("vit", phase_vit, card)
+    timed("mlp", phase_mlp, card)
+    timed("moe", phase_moe, card)
+    runtime = timed("runtime", phase_runtime, card, train_parity, train)
     in_framework = dict(zip(("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"),
                             runtime["trainer"]["launches"]))
     for rec in train_recs:
         rec["in_framework_launches"] = in_framework[rec["name"]]
-    plane = phase_serve_plane(card, serve)
+    plane = timed("serve plane", phase_serve_plane, card, serve)
     fwd_rec["in_replica_launches"] = plane["launches"]
-    dataplane = phase_dataplane(card, serve, plane)
+    dataplane = timed("dataplane", phase_dataplane, card, serve, plane)
     fwd_rec["over_dataplane_launches"] = dataplane["launches"]
-    static_rec = phase_static_kernel(card, plane["static_launches"])
+    static_rec = timed("static kernel", phase_static_kernel, card, plane["static_launches"])
     static_rec["in_dag_launches"] = dataplane["dag"]["launches"]
-    data = phase_data(card)
-    sharded = phase_sharded(card, data)
+    data = timed("data", phase_data, card)
+    sharded = timed("sharded", phase_sharded, card, data)
+    pipeline = timed("pipeline", phase_pipeline, card, data)
+    print(f"[timing] every phase (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [fwd_rec, static_rec, *train_recs, *llama_recs,
-                                  *data["kernels"], *sharded["kernels"]]}), flush=True)
+                                  *data["kernels"], *sharded["kernels"], *pipeline["kernels"]]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

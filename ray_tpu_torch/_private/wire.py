@@ -238,12 +238,26 @@ def encode_into(dest: memoryview, value: Any, tag: int = 0,
         return need
 
 
+def _size_hint(v: Any, np) -> int:
+    """Bytes a value's arrays and strings will take in a frame, walked
+    through nested containers at any depth (the pickle fallback lays the
+    same arrays out 64-byte aligned), so ``encode``'s first buffer fits a
+    large value: each retry zero-fills a buffer four times larger."""
+    t = type(v)
+    if t is tuple or t is list:
+        return 16 + sum(_size_hint(x, np) for x in v)
+    if t is dict:
+        return 16 + sum(_size_hint(k, np) + _size_hint(x, np) for k, x in v.items())
+    if t is bytes or t is str:
+        return 16 + len(v)
+    if np is not None and t is np.ndarray:
+        return v.nbytes + 64 + 16 * 8
+    return 16
+
+
 def encode(value: Any, tag: int = 0, trace: Any = None) -> bytes:
     """Encode to a fresh bytes object (socket frames, tests)."""
-    size = 256
-    np = sys.modules.get("numpy")
-    if np is not None and isinstance(value, np.ndarray):
-        size += value.nbytes + 64 + 16 * 8
+    size = 256 + _size_hint(value, sys.modules.get("numpy"))
     while True:
         buf = bytearray(size)
         try:

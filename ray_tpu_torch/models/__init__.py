@@ -3,12 +3,12 @@
 Ported so far: GPT-2 (``gpt2``: the model, its training step and the
 inference plane), Llama (``llama``: RoPE, GQA, SwiGLU; trains through the
 flash kernels), ResNet (``resnet``), the Vision Transformer (``vit``),
-the MNIST MLP (``mlp``), the MoE MLP (``moe``), the shared layers and
-training scaffolding (``common``) and the weight converters from the
-reference's parameter trees (``convert``).  Not yet: ``gpt2_pp``, which
-waits for the pipeline plane."""
+the MNIST MLP (``mlp``), the MoE MLP (``moe``), GPT-2 over the SPMD
+pipeline (``gpt2_pp``), the shared layers and training scaffolding
+(``common``) and the weight converters from the reference's parameter
+trees (``convert``)."""
 
-__all__ = ["gpt2", "llama", "resnet", "vit", "mlp", "moe", "common", "convert"]
+__all__ = ["gpt2", "gpt2_pp", "llama", "resnet", "vit", "mlp", "moe", "common", "convert"]
 
 
 def __getattr__(name):

@@ -5,6 +5,7 @@ dense-dispatch top-k routing over stacked expert weights.
     x_e       [E, C, D]  = einsum('sec,sd->ecd', dispatch, x)
     h_e       [E, C, F]  = silu(x_e @ w_gate) * (x_e @ w_up)
     out       [S, D]     = einsum('sec,ecd->sd', combine, h_e @ w_down)
+                         (one [S, E*C] x [E*C, D] matmul)
 
 Parity with the reference, each visible below: the router is a bias-free
 float32 Dense on float32 input; the aux loss is copied as the reference
@@ -16,10 +17,8 @@ D]`` weights used as they are.  ``torch.topk`` picks among tied router
 probabilities in its own order, where ``jax.lax.top_k`` takes the lower
 expert index first.
 
-Not ported: ``moe_sharding_rules`` (the expert-parallel rules over an
-``ep`` axis), which waits for the second half of the sharded planes
-(ROADMAP Queue A item 4); on one device the experts run without their
-exchange.
+``moe_sharding_rules`` extends the port's Megatron table with the
+expert-parallel layout: the stacked experts' leading dim over ``ep``.
 """
 
 from __future__ import annotations
@@ -98,7 +97,10 @@ class MoEMLP(nn.Module):
         he = (F.silu(torch.einsum("ecd,edf->ecf", xe, self.experts_gate.to(dt)))
               * torch.einsum("ecd,edf->ecf", xe, self.experts_up.to(dt)))
         ye = torch.einsum("ecf,efd->ecd", he, self.experts_down.to(dt))
-        out = torch.einsum("sec,ecd->sd", combine.to(dt), ye)
+        # einsum('sec,ecd->sd') as one matmul over the flattened (e, c):
+        # with the experts sharded over ep (moe_sharding_rules) ye is a
+        # DTensor sharded on e, which flattens with its leading dim
+        out = combine.to(dt).reshape(S, -1) @ ye.reshape(-1, D)
         return out.reshape(B, T, D), cfg.aux_loss_weight * aux
 
 
@@ -120,3 +122,23 @@ def init_model(cfg: MoEConfig, generator: Optional[torch.Generator] = None,
 
 
 num_params = common.num_params
+
+
+def moe_sharding_rules():
+    """Extend the transformer rule table with expert-stacked kernels
+    (leading dim over "ep"; inner dims follow the Megatron layout).  The
+    experts are stacked ``[E, D, F]`` / ``[E, F, D]`` as in the reference,
+    so their specs are the reference's; the router's weight is ``[E, D]``
+    (``common.Linear`` transposes flax's kernel) and replicated."""
+    from ray_tpu_torch.parallel.sharding import ShardingRules, gpt_sharding_rules
+
+    base = gpt_sharding_rules()
+    return ShardingRules(
+        rules=[
+            (r"experts_(gate|up)", ("ep", "fsdp", "tp")),
+            (r"experts_down", ("ep", "tp", "fsdp")),
+            (r"router/weight", (None, None)),
+        ]
+        + base.rules,
+        default=base.default,
+    )

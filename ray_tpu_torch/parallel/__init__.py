@@ -4,8 +4,9 @@
 The reference places arrays on a ``jax.sharding.Mesh`` and lets XLA
 insert the collectives; the port places tensors on a
 ``torch.distributed.device_mesh.DeviceMesh`` as DTensors and lets DTensor
-dispatch insert them.  The SPMD pipeline (``parallel/pipeline.py``) waits
-for ROADMAP Queue A item 4(e).
+dispatch insert them.  ``parallel/pipeline.py`` is the SPMD microbatched
+pipeline over a ``pp`` axis (point-to-point shifts between ranks, or the
+stages emulated on one device).
 """
 
 from ray_tpu_torch.parallel.mesh import (

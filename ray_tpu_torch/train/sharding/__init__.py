@@ -10,9 +10,12 @@ with the rule layout and runs the step under DTensor dispatch, data
 parallelism riding ``batch``; checkpoints save per shard and re-shard
 onto a different mesh on elastic resize.
 
-The reference's MPMD half (``PipelineConfig``, ``PipelinePlane``,
-``gpt2_pipeline_programs``: stage actor groups over the compiled-channel
-dataplane) is not ported yet: those names raise ``NotImplementedError``.
+**MPMD** (`pipeline_plane.py`): ``PipelinePlane(program,
+PipelineConfig(stages=S, microbatches=M))`` runs a model split into S
+stage programs (``gpt2_pipeline_programs``) as S stage actors under 1F1B,
+activations and their gradients moving stage to stage over the compiled
+channels; a stage death restarts the whole pipeline from its last
+checkpoint.
 """
 
 from ray_tpu_torch.train.sharding.checkpoint import load_sharded, save_sharded
@@ -23,6 +26,11 @@ from ray_tpu_torch.train.sharding.gspmd import (
     plan_from_context,
     set_train_state,
     train_state,
+)
+from ray_tpu_torch.train.sharding.pipeline_plane import (
+    PipelineConfig,
+    PipelinePlane,
+    gpt2_pipeline_programs,
 )
 from ray_tpu_torch.train.sharding.rules import (
     ShardingConfig,
@@ -44,15 +52,7 @@ __all__ = [
     "set_train_state",
     "save_sharded",
     "load_sharded",
+    "PipelineConfig",
+    "PipelinePlane",
+    "gpt2_pipeline_programs",
 ]
-
-_NOT_PORTED = ("PipelineConfig", "PipelinePlane", "gpt2_pipeline_programs")
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.train.sharding.{name}: the MPMD pipeline plane is not "
-            f"ported yet (ROADMAP Queue A item 4(f))"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

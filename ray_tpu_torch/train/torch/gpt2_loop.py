@@ -37,7 +37,11 @@ holds the rule table's placements, and the batches' placements.  With
 the first k batches and saves a sharded checkpoint
 (``plan.save_checkpoint``); a fresh plan and a model from another seed
 load it and take the remaining steps, whose losses are reported as
-``resumed_losses`` (with ``replay_losses`` for the first k).
+``resumed_losses`` (with ``replay_losses`` for the first k).  With
+``config["resume_layers"]`` = n as well, that drill runs on the model cut
+to n layers (the same widths, a smaller checkpoint), after an unbroken
+run of it over every batch (``unbroken_losses``) that the replay and the
+resume are held to.
 
 It reports once, after the last step, through ``train.report``: every
 step's loss (averaged over the ranks), the mean time of the timed steps,
@@ -86,6 +90,7 @@ def _allreduce_mean_grads(optimizer, args, kwargs) -> None:
 
 
 def train_loop_per_worker(config: Dict[str, Any]) -> None:
+    import dataclasses
     import math
     import os
     import time
@@ -242,8 +247,14 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         if config.get("resume_at"):
             del model, optimizer, step  # the card's memory goes to the next two
             batches_run = taken if from_data else [local] * (warmup + steps)
-            metrics.update(_resume(plan, batches_run, config["resume_at"], cfg, init_model,
-                                   make_optimizer, seeded))
+            rcfg, rinit = cfg, init_model
+            if config.get("resume_layers"):
+                rcfg = dataclasses.replace(cfg, n_layer=config["resume_layers"])
+
+                def rinit(gen):
+                    return gpt2.init_model(rcfg, gen, device=device)
+            metrics.update(_resume(plan, batches_run, config["resume_at"], rcfg, rinit,
+                                   make_optimizer, seeded, unbroken=rcfg is not cfg))
     ckpt = None
     if config.get("checkpoint") and rank == 0:
         ckpt = train.Checkpoint.from_pytree(model.state_dict())
@@ -275,10 +286,13 @@ def _plan_metrics(plan, model, optimizer) -> Dict[str, Any]:
     }
 
 
-def _resume(plan, batches, k: int, cfg, init_model, make_optimizer, seeded) -> Dict[str, Any]:
+def _resume(plan, batches, k: int, cfg, init_model, make_optimizer, seeded,
+            unbroken: bool = False) -> Dict[str, Any]:
     """Replay the first ``k`` batches on a second model from the same seed
     and save a sharded checkpoint; load it into a fresh plan's model from
-    another seed and take the remaining batches."""
+    another seed and take the remaining batches.  With ``unbroken``, first
+    an unbroken run of every batch from the seed (the losses the other two
+    are held to when ``cfg`` is not the fit's)."""
     import os
     import tempfile
     import time
@@ -297,6 +311,11 @@ def _resume(plan, batches, k: int, cfg, init_model, make_optimizer, seeded) -> D
 
     path = os.path.join(train.get_context().get_storage() or tempfile.gettempdir(),
                         f"gspmd_step{k}")
+    out: Dict[str, Any] = {}
+    if unbroken:
+        model, optimizer = plan.shard_init(init_model, make_optimizer, seeded())
+        out["unbroken_losses"], out["unbroken_step_ms"] = run(plan, model, optimizer, batches)
+        del model, optimizer
     model, optimizer = plan.shard_init(init_model, make_optimizer, seeded())
     replay, replay_ms = run(plan, model, optimizer, batches[:k])
     t = time.perf_counter()
@@ -310,7 +329,8 @@ def _resume(plan, batches, k: int, cfg, init_model, make_optimizer, seeded) -> D
     sharding.set_train_state(model, optimizer, fresh.load_checkpoint(path, like))
     load_s = time.perf_counter() - t
     resumed, resumed_ms = run(fresh, model, optimizer, batches[k:])
-    return {"replay_losses": replay, "resumed_losses": resumed, "resume_at": k,
+    return {**out, "replay_losses": replay, "resumed_losses": resumed, "resume_at": k,
+            "resume_layers": cfg.n_layer,
             "replay_step_ms": replay_ms, "resumed_step_ms": resumed_ms,
             "checkpoint_save_s": save_s, "checkpoint_load_s": load_s,
             "checkpoint_bytes": sum(os.path.getsize(os.path.join(path, f))

@@ -1,6 +1,6 @@
-"""Dataplane chaos drills of the port: copies of the serve and compiled-DAG
-drills of ``tests/test_dataplane_chaos.py`` (the pipeline-plane and
-Podracer drills wait for those planes).  The compiled-channel layer that
+"""Dataplane chaos drills of the port: copies of the serve, pipeline-plane
+and compiled-DAG drills of ``tests/test_dataplane_chaos.py`` (the Podracer
+drill waits for RLlib).  The compiled-channel layer that
 carries serve calls and token streams and compiled-DAG edges is drilled
 with the seeded ``chan:<path-glob>:<action>`` chaos rules, and every
 consumer must recover with TYPED errors and ZERO corrupted values
@@ -12,6 +12,8 @@ delivered to user code:
                       replica skips        replica skips            fallback, exact result
     serve (replica    typed ActorDied,     (same CRC path as        —
     response side)    lazy re-attach       corrupt)
+    pipeline plane    checkpoint-restart,  checkpoint-restart,      reattach/StageFailed
+                      loss parity          loss parity              (kill drill: test_torch_pipeline_plane)
     compiled DAG      graph fails CLOSED   transparent epoch        transparent epoch
                       (multiplicity        reattach + seq replay,   reattach + seq replay,
                       unknowable), typed   exact                    exact
@@ -148,6 +150,45 @@ def test_serve_dataplane_corrupt_response_frame_typed_and_reattaches(chaos_env):
         assert outcomes[0] == "ok" and outcomes[-1] == "ok"
     finally:
         serve.shutdown()
+
+
+@pytest.mark.slow  # ~30 s restart-parity drill; dataplane chaos smoke covers it
+def test_pipeline_plane_corrupt_and_torn_frames_restart_with_parity(chaos_env):
+    """Driver-side faults on the pipeline's tgt edge: one corrupted
+    frame and one torn (mid-write-killed) frame each surface in the
+    reading stage as the typed ChannelCorruptionError, the plane
+    restarts from its checkpoint (restarts == 2, one per fault), and
+    the final losses match the undisturbed single-process reference —
+    a corrupted microbatch can NEVER silently poison a training step."""
+    pytest.importorskip("jax")
+    import test_torch_spmd as torch_spmd
+    from test_torch_pipeline_plane import _data, _program, _reference_losses
+
+    from ray_tpu_torch.train.sharding import PipelineConfig, PipelinePlane
+
+    # tgt_in is written ONLY by the driver, so the schedule is exactly
+    # two faults (per-process ordinals; stage respawns can't re-fire it)
+    chaos_env(
+        "chan:*ray_tpu_torch_pp_*/tgt_in:corrupt_frame:at=3,"
+        "chan:*ray_tpu_torch_pp_*/tgt_in:torn_write:at=7"
+    )
+    ray_tpu_torch.init(num_cpus=4)
+    steps = 5
+    data_fn = _data(steps)
+    ref = _reference_losses(data_fn, steps)
+    plane = PipelinePlane(
+        _program(),
+        PipelineConfig(
+            stages=2, microbatches=2, step_timeout_s=5.0,
+            checkpoint_every=2, max_restarts=4, device="cpu",
+        ),
+    )
+    try:
+        losses = torch_spmd.within(lambda: plane.run(data_fn, steps), 120.0)
+        assert plane.restarts == 2  # one checkpoint-restart per fault
+        assert losses == pytest.approx(ref, abs=2e-5)
+    finally:
+        plane.stop()
 
 
 def test_dag_socket_torn_and_drop_reattach_exact(chaos_env):

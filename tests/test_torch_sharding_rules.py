@@ -208,8 +208,11 @@ def test_sharding_config_validation_and_defaults():
 
 
 def test_pipeline_plane_names_raise_until_ported():
+    """Ported now: the package exports the MPMD plane's names, the
+    pipeline plane's own objects, as the reference's package does."""
     import ray_tpu_torch.train.sharding as sharding
+    from ray_tpu_torch.train.sharding import pipeline_plane
 
     for name in ("PipelineConfig", "PipelinePlane", "gpt2_pipeline_programs"):
-        with pytest.raises(NotImplementedError, match=r"4\(f\)"):
-            getattr(sharding, name)
+        assert name in sharding.__all__
+        assert getattr(sharding, name) is getattr(pipeline_plane, name)

@@ -348,6 +348,80 @@ def ranks_plan(rank, world, cfg, state, data, path, rows):
 
 
 # ----------------------------------------------------------------------
+# tests/test_torch_pipeline.py: the SPMD pipeline on real ranks, and the
+# MoE's expert-parallel rules
+# ----------------------------------------------------------------------
+def ranks_pipeline(rank, world, ws, x, n_micro):
+    """pipeline_spmd over pp=world with tanh(x @ w) stages: the output,
+    this rank's slice of the stage weights' gradient of sum(out^2) and
+    the input's gradient."""
+    import torch
+
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.parallel.pipeline import microbatch, pipeline_spmd, stack_stage_params
+
+    mesh = create_mesh({"pp": world}, device_type="cpu")
+    sp = stack_stage_params([{"w": torch.from_numpy(w)} for w in ws])
+    sp["w"].requires_grad_(True)
+    xx = torch.from_numpy(x).requires_grad_(True)
+    pipe = pipeline_spmd(lambda p, h: torch.tanh(h @ p["w"]), mesh, "pp")
+    out = pipe(sp, microbatch(xx, n_micro))
+    (out ** 2).sum().backward()
+    grad = sp["w"].grad
+    return {"out": _np(out), "w_grad_row": _np(grad[rank]),
+            "w_grad_rows_elsewhere_zero": bool(torch.count_nonzero(
+                torch.cat([grad[:rank], grad[rank + 1:]])) == 0),
+            "x_grad": _np(xx.grad)}
+
+
+def ranks_pipeline_interleaved(rank, world, cfg, state, tokens, n_micro, v):
+    """make_pp_loss_fn_interleaved over pp=world, v chunks a rank: the loss,
+    the first and last stages' gradients and this rank's chunk slice of
+    the chunk gradients."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2_pp
+    from ray_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh({"pp": world}, device_type="cpu")
+    params = {k: torch.from_numpy(a) for k, a in state.items()}
+    first, chunks, last = gpt2_pp.split_pipeline_params_interleaved(params, cfg, world, v)
+    for t in (*first.values(), *chunks.values(), *last.values()):
+        t.requires_grad_(True)
+    toks = torch.from_numpy(tokens)
+    loss = gpt2_pp.make_pp_loss_fn_interleaved(cfg, mesh, n_micro, v)(
+        first, chunks, last, toks[:, :-1], toks[:, 1:])
+    loss.backward()
+    return {"loss": loss.item(),
+            "first_grads": {k: _np(t.grad) for k, t in first.items()},
+            "last_grads": {k: _np(t.grad) for k, t in last.items()},
+            "chunk_grad_rows": {k: _np(t.grad[rank]) for k, t in chunks.items()}}
+
+
+def ranks_moe(rank, world, cfg, state, x):
+    """MoEMLP with its parameters placed by moe_sharding_rules() on an
+    ep=world mesh: the specs, each expert weight's local shape, and the
+    output and aux loss, whole."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.parallel.sharding import infer_param_spec, shard_module
+
+    mesh = create_mesh({"ep": world}, device_type="cpu")
+    model = moe.MoEMLP(cfg)
+    model.load_state_dict({k: torch.from_numpy(a) for k, a in state.items()})
+    specs = infer_param_spec(model, moe.moe_sharding_rules(), mesh)
+    shard_module(model, mesh, specs)
+    with torch.no_grad(), implicit_replication():
+        out, aux = model(torch.from_numpy(x))
+    return {"specs": specs,
+            "local_shapes": {n: tuple(p.to_local().shape) for n, p in model.named_parameters()},
+            "out": _np(out), "aux": float(_np(aux))}
+
+
+# ----------------------------------------------------------------------
 # the harness's own deadline and error report
 # ----------------------------------------------------------------------
 def _rank_sleeps(rank, world):

@@ -100,3 +100,20 @@ def test_each_package_decodes_the_others_frames(traced):
             tag, out, tr = dec.decode_traced(memoryview(frame))
             assert tag == 1 and _equal(out, v), v
             assert tr == trace
+
+
+def test_encode_sizes_its_buffer_for_nested_arrays_once():
+    """The port's encode sizes its first buffer from the arrays inside the
+    value (a deliberate difference: the reference starts at 256 bytes and
+    retries at four times the size, zero-filling each buffer), so a large
+    tree fits the first buffer, on the fast path and the pickle fallback,
+    and its frame is still the reference's byte for byte."""
+    rng = np.random.default_rng(3)
+    tree = {f"h_{i}.w": rng.standard_normal((64, 96)).astype(np.float32) for i in range(40)}
+    deep = [{"state": {0: {"exp_avg": tree["h_0.w"], "step": np.array(1.0)}}},
+            {"params": list(range(100))}]  # past MAX_DEPTH and MAX_ELEMS: pickled
+    for v in ((tree, None), (tree, deep)):
+        frame = twire.encode(v)
+        assert len(frame) <= 256 + twire._size_hint(v, np)
+    assert twire.encode((tree, None)) == jwire.encode((tree, None))
+    assert twire.encode((tree, deep))[1] == twire.PICKLE
