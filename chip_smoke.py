@@ -172,7 +172,7 @@ and prints no result line):
                   gradients against B1-B3 causal over the whole T; then the
                   three non-causal at the ring block, timed.
 20. pipeline    — the pipeline planes, under a cluster of their own: (a)
-                  GPT-2 medium's widths at 4 layers in f32, B=16 as 4
+                  GPT-2 medium's widths at 2 layers in f32, B=16 as 4
                   microbatches, T=1024, PipelinePlane(stages=2) with both
                   stage actors on the card: 3 steps, each loss equal to an
                   unpipelined f32 step's in the driver from the same
@@ -200,6 +200,32 @@ and prints no result line):
                   one-card {"pp": 1} mesh, against the unpipelined loss
                   (1e-4 relative) and gradients (1e-3 of each tensor's
                   max).
+21. tune and rllib — Tune and RLlib under a cluster of their own: (a)
+                  Tuner(TorchTrainer(gpt2 loop)) over phase 9's GPT-2
+                  small batch and seed, lr in {1e-4, 3e-4, 1e-3}, 4 steps
+                  a trial, max_concurrent_trials=1, ASHA on the reported
+                  loss: each trial's fit() runs in its trial actor and its
+                  worker leases the card; B1 = B2 = B3 = n_layer launches
+                  a step counted in each trial's worker, the driver's 0;
+                  the 3e-4 trial's losses equal phase 9's direct run to
+                  1e-5 relative; the ResultGrid names the lowest-loss
+                  trial; (b) where gymnasium is installed, PPO on
+                  CartPole-v1 under Tuner(tune.with_resources(PPO, {"cpu":
+                  1, "gpu": 1})) at tests/test_rllib.py's configuration:
+                  episode_return_mean past 120 within 30 iterations, the
+                  learner on cuda in the trial actor (which maps libcuda)
+                  and the env runners on their CPUs (which do not),
+                  env-steps/s and the learner's update time an iteration,
+                  the trial's checkpoint restoring its weights (without
+                  gymnasium (b) is not run and its absence printed);
+                  shutdown() leaves no port process; (c) PPO's learner
+                  with the Nature-CNN torso on 84 x 84 x 4 uint8 frames,
+                  1024 rows, minibatch 128, 2 epochs: one
+                  update_from_batch_epochs in f32 on the card against the
+                  same update on the CPU (its first Adam step by phase
+                  8's rule; over the 16 steps every minibatch's loss to
+                  5e-3 relative, beside the CPU's own spread), then timed
+                  on the card.
 
 Every phase's seconds are printed ([timing]) as it ends, and all of them
 with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
@@ -2840,7 +2866,7 @@ def phase_sharded(card: str, data: dict) -> dict:
 # ----------------------------------------------------------------------
 PP_STAGES, PP_M, PP_STEPS = 2, 4, 8  # the bf16 run: 2 stages, 4 microbatches, 8 steps
 PP_WARMUP = 2  # the first steps hold the stages' warm-up (allocator, cuBLAS): not timed
-PP_PARITY_LAYERS, PP_PARITY_STEPS, PP_DRILL_STEPS = 4, 3, 5
+PP_PARITY_LAYERS, PP_PARITY_STEPS, PP_DRILL_STEPS = 2, 3, 4
 # one activation frame is [4, 1024, 1024] f32, 16 MiB; 1F1B keeps up to
 # `stages` frames in flight on an edge
 PP_RING = 80 << 20
@@ -2856,6 +2882,20 @@ PP_STEP_TIMEOUT_S = 20.0
 # relative bounds that drift while a step that lost or doubled a
 # microbatch's gradient departs by more
 PP_LOSS_TOL = 1e-2
+
+
+def _wait_no_port_processes(tag: str) -> dict:
+    """After shutdown(): wait up to 20 s for the port's processes to go;
+    raise if any is left."""
+    deadline = time.monotonic() + 20
+    left = _port_processes()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left = _port_processes()
+    print(f"[{tag}] after shutdown(): port processes left {sorted(left)}", flush=True)
+    if left:
+        raise AssertionError(f"left after shutdown(): processes {left}")
+    return left
 
 
 def _pp_program(cfg, host: dict):
@@ -2906,7 +2946,7 @@ def _pp_f32_parity(card: str, rows: np.ndarray) -> dict:
     unpipelined f32 run in the driver; PP_PARITY_STEPS steps, each loss
     equal to the driver's to 1e-4 relative; then the kill drill (stage 1
     killed after step 3, a checkpoint every 2 steps, one restart that
-    replays steps 3 to 5): every loss within 2e-5 absolute of the
+    replays steps 3 to 4): every loss within 2e-5 absolute of the
     unbroken run's, the reference drill's limit."""
     from ray_tpu_torch.train.sharding import PipelineConfig, PipelinePlane
 
@@ -2933,7 +2973,7 @@ def _pp_f32_parity(card: str, rows: np.ndarray) -> dict:
         run_s = time.perf_counter() - t0 - start_s
         ray_tpu_torch.kill(plane.actors[1])  # step 3 is not checkpointed
         t1 = time.perf_counter()
-        rest = plane.run(data_fn, PP_DRILL_STEPS)  # restarts, replays steps 3..5
+        rest = plane.run(data_fn, PP_DRILL_STEPS)  # restarts, replays steps 3..4
         recover_s = time.perf_counter() - t1
         restarts = plane.restarts
     finally:
@@ -3166,16 +3206,8 @@ def phase_pipeline(card: str, data: dict) -> dict:
         parts["main"] = time.perf_counter() - t0 - sum(parts.values())
     finally:
         ray_tpu_torch.shutdown()
-    deadline = time.monotonic() + 20
-    left = _port_processes()
-    while left and time.monotonic() < deadline:
-        time.sleep(0.5)
-        left = _port_processes()
-    res["processes_left"] = left
+    res["processes_left"] = _wait_no_port_processes("pipeline")
     parts["shutdown"] = time.perf_counter() - t0 - sum(parts.values())
-    print(f"[pipeline] after shutdown(): port processes left {sorted(left)}", flush=True)
-    if left:
-        raise AssertionError(f"left after shutdown(): processes {left}")
 
     # (c) the kernels at the microbatch: q/k/v views of the fused qkv
     cfg = gpt2.GPT2Config.medium()
@@ -3201,6 +3233,404 @@ def phase_pipeline(card: str, data: dict) -> dict:
     print(f"[pipeline] phase took {res['seconds']:.1f} s: "
           f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
     print("[pipeline] " + json.dumps(res), flush=True)
+    return res
+
+
+# ----------------------------------------------------------------------
+# Tune and RLlib: a Tuner sweeps GPT-2 small's TorchTrainer; PPO under a
+# Tuner with its learner on the card; the Nature-CNN learner's update
+# ----------------------------------------------------------------------
+TUNE_LRS = (1e-4, 3e-4, 1e-3)  # the sweep's grid; 3e-4 is phase 9's lr
+TUNE_STEPS = 4
+# tests/test_rllib.py:90-116's configuration: 2 runners x 2 envs, batch
+# 1024, minibatch 128, 6 epochs, entropy 0.01, seed 1
+PPO_CONFIG = {"env": "CartPole-v1", "num_env_runners": 2, "num_envs_per_env_runner": 2,
+              "num_cpus_per_env_runner": 1, "lr": 3e-4, "train_batch_size": 1024,
+              "minibatch_size": 128, "num_epochs": 6, "entropy_coeff": 0.01, "seed": 1}
+PPO_TARGET, PPO_MAX_ITERS = 120.0, 30
+# the Nature-CNN at Atari's frame: conv ((32, 8, 4), (64, 4, 2), (64, 3, 1)),
+# hidden (512,), 84 x 84 x 4 uint8 frames, 1024 rows, minibatch 128, 2 epochs
+CNN_FRAME, CNN_FILTERS, CNN_ACTIONS = (84, 84, 4), ((32, 8, 4), (64, 4, 2), (64, 3, 1)), 6
+CNN_ROWS, CNN_MB, CNN_EPOCHS, CNN_LR = 1024, 128, 2, 3e-4
+
+
+def _tune_sweep(card: str, raw: dict, storage: str) -> dict:
+    """(a) Tuner(TorchTrainer(gpt2 loop)) over phase 9's GPT-2 small batch
+    and seed, lr in TUNE_LRS, TUNE_STEPS steps each, one trial at a time,
+    ASHA on the reported loss.  Each trial's fit() runs in its trial actor
+    and its worker leases the card; the launches are counted in each
+    worker (fresh processes, from 0)."""
+    from ray_tpu_torch import tune
+
+    arrivals = {}
+
+    def arrived(result):  # the driver reads each trial's one report
+        arrivals[result["config"]["train_loop_config"]["lr"]] = time.perf_counter()
+        return False
+
+    cfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+    toks = np.random.default_rng(4).integers(0, PROMPT_VOCAB, size=(TRAIN_B, TRAIN_T + 1))
+    trainer = TorchTrainer(
+        train_loop_per_worker,
+        train_loop_config={"cfg": cfg, "seed": 0, "tokens": toks, "warmup": 0,
+                           "steps": TUNE_STEPS, "device": "cuda", "peak_flops": PEAK_BF16_FLOPS},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(storage_path=os.path.join(storage, "train")),
+    )
+    tuner = tune.Tuner(
+        trainer,
+        param_space={"train_loop_config": {"lr": tune.grid_search(list(TUNE_LRS))}},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=1,
+            scheduler=tune.ASHAScheduler(max_t=TUNE_STEPS, grace_period=1, reduction_factor=2)),
+        run_config=RunConfig(name="gpt2_sweep", storage_path=storage, stop=arrived),
+    )
+    _reset_counts()  # the driver's counts: they must stay 0 while the trials train
+    t0 = time.perf_counter()
+    results = tuner.fit()
+    wall = time.perf_counter() - t0
+    # each trial's wall: from the previous trial's report (or the sweep's
+    # start) to its own, which comes once its fit() returned
+    marks = [t0] + sorted(arrivals.values())
+    trial_s = dict(zip(sorted(arrivals, key=arrivals.get),
+                       (b - a for a, b in zip(marks, marks[1:]))))
+    driver = list(_launch_counts())
+    trials = {}
+    for r in results:
+        m = r.metrics or {}
+        lr = m.get("config", {}).get("train_loop_config", {}).get("lr")
+        trials[lr] = {k: m.get(k) for k in ("losses", "loss", "launches", "step_ms", "pid",
+                                             "device_name", "tokens_per_s", "peak_memory_gb")}
+        trials[lr]["trial_s"] = trial_s.get(lr)
+    best = results.get_best_result()
+    best_lr = best.metrics["config"]["train_loop_config"]["lr"]
+    want = [cfg.n_layer * TUNE_STEPS] * 3
+    ref = raw["losses"][:TUNE_STEPS]
+    mine = trials.get(TRAIN_LR, {}).get("losses") or []
+    rels = [abs(a - b) / abs(b) for a, b in zip(mine, ref)]
+    train_s = sum(TUNE_STEPS * (t["step_ms"] or 0) / 1e3 for t in trials.values())
+    res = {"trials": trials, "best_lr": best_lr, "best_loss": best.metrics["loss"],
+           "errors": results.num_errors, "sweep_s": wall,
+           "trial_overhead_s": (wall - train_s) / max(1, len(trials)),
+           "driver_launches": driver, "want_launches": want,
+           "loss_rel_err_vs_raw": max(rels) if rels else None}
+    for lr, t in sorted(trials.items()):
+        print(f"[tune+rllib] (a) trial lr={lr:g}: losses {[round(x, 5) for x in t['losses'] or []]}, "
+              f"step {t['step_ms']:.2f} ms (the first cold), trial {t['trial_s']:.1f} s from the "
+              f"previous report, launches in its worker (pid {t['pid']}) B1/B2/B3 "
+              f"{t['launches']} (want {want}) — {card}", flush=True)
+    print(f"[tune+rllib] (a) Tuner(TorchTrainer) GPT-2 small B={TRAIN_B} T={TRAIN_T}, lr "
+          f"{list(TUNE_LRS)}, {TUNE_STEPS} steps a trial, max_concurrent_trials=1, ASHA on loss: "
+          f"ResultGrid's best trial lr={best_lr:g} loss {best.metrics['loss']:.5f}; the lr "
+          f"{TRAIN_LR:g} trial vs phase 9's direct run (same seed and batch) max rel "
+          f"{res['loss_rel_err_vs_raw']} (tol 1e-5); sweep {wall:.1f} s, "
+          f"{res['trial_overhead_s']:.1f} s a trial outside its steps; the driver's launches "
+          f"{driver} — {card}", flush=True)
+    if results.num_errors or sorted(trials) != sorted(TUNE_LRS):
+        raise AssertionError(f"the sweep's trials: {sorted(trials)}, errors {results.num_errors}")
+    for lr, t in trials.items():
+        if t["launches"] != want or not all(math.isfinite(x) for x in t["losses"]):
+            raise AssertionError(f"trial lr={lr}: launches {t['launches']} (want {want}), "
+                                 f"losses {t['losses']}")
+    if driver != [0, 0, 0] or len({t["pid"] for t in trials.values()}) != len(trials):
+        raise AssertionError(f"the trials did not train in workers of their own: driver "
+                             f"{driver}, pids {[t['pid'] for t in trials.values()]}")
+    if len(mine) != TUNE_STEPS or max(rels) > 1e-5:
+        raise AssertionError(f"the lr {TRAIN_LR} trial's losses {mine} != the direct run's {ref}")
+    if best.metrics["loss"] != min(t["loss"] for t in trials.values()):
+        raise AssertionError(f"the ResultGrid's best trial {best_lr} is not the lowest loss")
+    return res
+
+
+def _weights_sum(weights: dict) -> float:
+    """A float64 fingerprint of a learner's weights."""
+    return float(sum(np.sum(v, dtype=np.float64) for _, v in sorted(weights.items())))
+
+
+def _smoke_ppo_class():
+    """PPO whose results add the trial's pid, its env runners' pids, the
+    learner's device, the learner's update seconds an iteration and a
+    fingerprint of the weights (defined here, pickled by value)."""
+    from ray_tpu_torch.rllib import PPO
+
+    class SmokePPO(PPO):
+        def setup(self, config):
+            super().setup(config)
+            update = self.learner_group.update_from_batch
+            self._update_s = []
+
+            def timed(*a, **kw):
+                t = time.perf_counter()
+                out = update(*a, **kw)  # its metrics are read back: the card has finished
+                self._update_s.append(time.perf_counter() - t)
+                return out
+
+            self.learner_group.update_from_batch = timed
+
+        def step(self):
+            out = super().step()
+            out["pid"] = os.getpid()
+            out["runner_pids"] = ray_tpu_torch.get(
+                [r.__ray_call__.remote(lambda actor: os.getpid())
+                 for r in self.env_runner_group.runners])
+            out["learner_device"] = str(self.learner_group._local.device)
+            out["learner_update_s"] = self._update_s[-1]
+            out["weights_sum"] = _weights_sum(self.learner_group.get_weights())
+            return out
+
+    return SmokePPO
+
+
+def _ppo_under_tune(card: str, storage: str) -> dict:
+    """(b) PPO on CartPole-v1 under Tuner(tune.with_resources(PPO, {"cpu":
+    1, "gpu": 1})): the learner updates on cuda inside the trial actor, the
+    env runners infer on their CPUs; stop past PPO_TARGET or after
+    PPO_MAX_ITERS; the trial's checkpoint restores equal weights."""
+    from ray_tpu_torch import tune
+
+    ppo = _smoke_ppo_class()
+    seen = {"iters": [], "maps": {}}
+
+    def stop(r):  # the driver reads each result while the trial's processes live
+        seen["iters"].append({k: r.get(k) for k in (
+            "training_iteration", "episode_return_mean", "num_env_steps_sampled",
+            "time_this_iter_s", "learner_update_s", "learner_device", "weights_sum")})
+        for pid in [r["pid"], *r["runner_pids"]]:
+            seen["maps"].setdefault(pid, _maps_libcuda(pid))
+        seen["pids"] = (r["pid"], list(r["runner_pids"]))
+        return ((r.get("episode_return_mean") or 0.0) > PPO_TARGET
+                or r["training_iteration"] >= PPO_MAX_ITERS)
+
+    tuner = tune.Tuner(
+        tune.with_resources(ppo, {"cpu": 1, "gpu": 1}),
+        param_space=dict(PPO_CONFIG),
+        tune_config=tune.TuneConfig(metric="episode_return_mean", mode="max"),
+        run_config=RunConfig(name="ppo_cartpole", storage_path=storage, stop=stop),
+    )
+    t0 = time.perf_counter()
+    results = tuner.fit()
+    wall = time.perf_counter() - t0
+    best = results.get_best_result()
+    iters = seen["iters"]
+    last = iters[-1]
+    trial_pid, runner_pids = seen["pids"]
+    rates = [i["num_env_steps_sampled"] / i["time_this_iter_s"] for i in iters]
+    updates = [i["learner_update_s"] for i in iters]
+    # restore in the driver from the trial's last checkpoint
+    restored = ppo.from_checkpoint(best.checkpoint.path)
+    try:
+        restored_sum = _weights_sum(restored.get_policy_weights())
+        restored_device = str(restored.learner_group._local.device)
+    finally:
+        restored.cleanup()
+    res = {"iterations": len(iters), "returns": [i["episode_return_mean"] for i in iters],
+           "env_steps_per_s": rates, "env_steps_per_s_mean": statistics.mean(rates),
+           "learner_update_ms": [u * 1e3 for u in updates],
+           "learner_update_ms_mean": statistics.mean(updates) * 1e3,
+           "learner_device": last["learner_device"], "trial_pid": trial_pid,
+           "runner_pids": runner_pids, "maps_libcuda": seen["maps"], "wall_s": wall,
+           "weights_sum": last["weights_sum"], "restored_weights_sum": restored_sum,
+           "restored_device": restored_device, "errors": results.num_errors}
+    print(f"[tune+rllib] (b) Tuner(with_resources(PPO, cpu 1, gpu 1)) on CartPole-v1, "
+          f"{PPO_CONFIG}: episode_return_mean by iteration "
+          f"{[round(x or 0.0, 1) for x in res['returns']]} (want > {PPO_TARGET:g}); learner on "
+          f"{last['learner_device']}; env-steps/s {res['env_steps_per_s_mean']:.0f} (by iteration "
+          f"{[round(x) for x in rates]}); learner update {res['learner_update_ms_mean']:.1f} ms an "
+          f"iteration ({PPO_CONFIG['num_epochs']} epochs x "
+          f"{PPO_CONFIG['train_batch_size'] // PPO_CONFIG['minibatch_size']} minibatches); "
+          f"libcuda mapped: trial {trial_pid} {seen['maps'].get(trial_pid)}, runners "
+          f"{ {p: seen['maps'].get(p) for p in runner_pids} }; restored weights sum "
+          f"{restored_sum!r} vs the trial's {last['weights_sum']!r}; {wall:.1f} s — {card}",
+          flush=True)
+    if results.num_errors or not (last["episode_return_mean"] or 0.0) > PPO_TARGET:
+        raise AssertionError(f"PPO did not pass {PPO_TARGET}: {res}")
+    if not last["learner_device"].startswith("cuda") or not restored_device.startswith("cuda"):
+        raise AssertionError(f"the learner did not update on the card: {res}")
+    if not seen["maps"][trial_pid] or any(seen["maps"][p] for p in runner_pids):
+        raise AssertionError(f"libcuda in the trial actor / env runners: {seen['maps']}")
+    if restored_sum != last["weights_sum"]:
+        raise AssertionError(f"the restored weights differ from the trial's: {res}")
+    return res
+
+
+def _cnn_batch(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.integers(0, 256, size=(CNN_ROWS, int(np.prod(CNN_FRAME))), dtype=np.uint8),
+        "actions": rng.integers(0, CNN_ACTIONS, size=CNN_ROWS),
+        "action_logp": (np.log(1.0 / CNN_ACTIONS) + 0.1 * rng.standard_normal(CNN_ROWS)
+                        ).astype(np.float32),
+        "advantages": rng.standard_normal(CNN_ROWS).astype(np.float32),
+        "value_targets": rng.standard_normal(CNN_ROWS).astype(np.float32),
+    }
+
+
+def _recorded(learner) -> dict:
+    """Record, for each Adam step of ``learner``, its minibatch's loss, and
+    the first step's gradients and the parameters after it, until
+    ``rec["stop"]()``."""
+    rec = {"losses": []}
+    loss_of = learner.compute_loss
+    named = list(learner.module.named_parameters())
+
+    def compute_loss(batch):
+        out = loss_of(batch)
+        rec["losses"].append(out[0].detach())
+        return out
+
+    def before_step(optimizer, args, kwargs):
+        rec.setdefault("grads", {n: p.grad.detach().cpu().clone() for n, p in named})
+
+    def after_step(optimizer, args, kwargs):
+        rec.setdefault("params", {n: p.detach().cpu().clone() for n, p in named})
+
+    learner.compute_loss = compute_loss
+    hooks = [learner.optimizer.register_step_pre_hook(before_step),
+             learner.optimizer.register_step_post_hook(after_step)]
+
+    def stop():
+        for h in hooks:
+            h.remove()
+        learner.compute_loss = loss_of
+
+    rec["stop"] = stop
+    return rec
+
+
+# The whole update's minibatch losses, card vs CPU.  Adam's steps amplify
+# rounding: an entry whose gradient sits at rounding level moves by about
+# lr either way, and later minibatches' losses follow.  On the CPU alone a
+# 1e-6 relative change of the initial weights moved these losses by 1.4e-4
+# to 1.3e-3 relative over the 16 steps (the run prints its own spread);
+# 5e-3 bounds that drift, where a 10% error in lr or the clip moves some
+# minibatch's loss by 0.05 to 0.15 (the same update on the CPU).
+CNN_LOSS_TOL = 5e-3
+
+
+def _cnn_learner(card: str) -> dict:
+    """(c) PPO's learner with the Nature-CNN torso at Atari's frame: one
+    update_from_batch_epochs (CNN_EPOCHS x CNN_ROWS // CNN_MB Adam steps)
+    in f32 on the card and on the CPU from the same seed (the same
+    weights and permutations).  Its first Adam step by phase 8's rule:
+    the loss (equal weights) to 1e-4 relative, the gradients to 1e-3 of
+    each tensor's max, each parameter after the step within 1e-2 lr where
+    its gradient is at least 1e-2 of its tensor's largest and within 2 lr
+    elsewhere; over the whole update, every minibatch's loss to
+    CNN_LOSS_TOL and every parameter within Adam's 2 lr a step, beside the
+    CPU's own spread for weights moved by 1e-6.  Then the card's update,
+    timed."""
+    from ray_tpu_torch.rllib import RLModuleSpec, SampleBatch
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+
+    spec = RLModuleSpec(observation_dim=int(np.prod(CNN_FRAME)), action_dim=CNN_ACTIONS,
+                        hidden=(512,), obs_shape=CNN_FRAME, conv_filters=CNN_FILTERS)
+    conf = {"lr": CNN_LR, "clip_param": 0.2, "vf_clip_param": 10.0, "vf_loss_coeff": 0.5,
+            "entropy_coeff": 0.01, "seed": 0}
+    batch = SampleBatch(_cnn_batch(21))
+    learners = {key: PPOLearner(spec, {**conf, "device": key.rstrip("+")})
+                for key in ("cuda", "cpu", "cpu+")}
+    with torch.no_grad():  # the CPU's own spread: its weights moved by 1e-6 relative
+        g = torch.Generator().manual_seed(1)
+        for p in learners["cpu+"].module.parameters():
+            p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
+    recs = {key: _recorded(learner) for key, learner in learners.items()}
+    secs = {}
+    for key, learner in learners.items():
+        t = time.perf_counter()
+        learner.update_from_batch_epochs(batch, CNN_MB, CNN_EPOCHS)
+        secs[key] = time.perf_counter() - t
+    for r in recs.values():
+        r["stop"]()
+    steps = CNN_EPOCHS * (CNN_ROWS // CNN_MB)
+    losses = {key: [x.item() for x in r["losses"]] for key, r in recs.items()}
+
+    def loss_rel(key):
+        return [abs(a - b) / abs(b) for a, b in zip(losses[key], losses["cpu"])]
+
+    rels, spread = loss_rel("cuda"), max(loss_rel("cpu+"))
+    on_card, on_cpu = recs["cuda"], recs["cpu"]
+    grad_err = max(float((on_card["grads"][n] - g).abs().max() / g.abs().max())
+                   for n, g in on_cpu["grads"].items())
+    sure = {n: g.abs() >= 1e-2 * g.abs().max() for n, g in on_cpu["grads"].items()}
+    step1_sure = max(float((on_card["params"][n] - p).abs()[sure[n]].max())
+                     for n, p in on_cpu["params"].items())
+    step1_all = max(float((on_card["params"][n] - p).abs().max())
+                    for n, p in on_cpu["params"].items())
+    final = {k: {n: torch.from_numpy(v) for n, v in learner.get_weights().items()}
+             for k, learner in learners.items()}
+    param_err = max(float((final["cuda"][n] - p).abs().max()) for n, p in final["cpu"].items())
+    param_spread = max(float((final["cpu+"][n] - p).abs().max()) for n, p in final["cpu"].items())
+    # the update on the card, timed: three more (the first held the warm-up)
+    card_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        learners["cuda"].update_from_batch_epochs(batch, CNN_MB, CNN_EPOCHS)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t) * 1e3)
+    res = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "first_loss_rel_err": rels[0], "first_grad_err_over_max": grad_err,
+           "first_step_param_err_sure": step1_sure, "first_step_param_err": step1_all,
+           "loss_rel_err": max(rels), "cpu_spread_loss_rel": spread, "param_err": param_err,
+           "cpu_spread_param": param_spread, "adam_steps": steps, "lr": CNN_LR,
+           "update_ms": statistics.median(card_ms), "update_ms_all": card_ms,
+           "first_update_s": secs,
+           "n_params": sum(p.numel() for p in learners["cpu"].module.parameters())}
+    print(f"[tune+rllib] (c) PPO learner, Nature-CNN {CNN_FILTERS} + (512,) on {CNN_FRAME} uint8 "
+          f"frames ({res['n_params']} parameters), {CNN_ROWS} rows, minibatch {CNN_MB}, "
+          f"{CNN_EPOCHS} epochs ({steps} Adam steps), f32 card vs CPU: step 1 loss rel "
+          f"{rels[0]:.2e} (tol 1e-4), gradients {grad_err:.2e} of max (tol 1e-3), params "
+          f"{step1_sure:.2e} where |g| >= 1e-2 max|g| (tol {1e-2 * CNN_LR:g}), {step1_all:.2e} "
+          f"overall (tol {2 * CNN_LR:g}); the whole update: every minibatch's loss max rel "
+          f"{max(rels):.2e} (tol {CNN_LOSS_TOL:g}), params {param_err:.2e} (tol "
+          f"{2 * CNN_LR * steps:g}); the CPU's own for weights moved 1e-6: {spread:.2e} and "
+          f"{param_spread:.2e}; update on the card {res['update_ms']:.2f} ms (runs "
+          f"{[round(x, 2) for x in card_ms]}; the first, with warm-up, {secs['cuda']:.2f} s; the "
+          f"CPU's {secs['cpu']:.2f} s) — {card}", flush=True)
+    if not (rels[0] <= 1e-4 and grad_err <= 1e-3 and step1_sure <= 1e-2 * CNN_LR
+            and step1_all <= 2 * CNN_LR and max(rels) <= CNN_LOSS_TOL
+            and param_err <= 2 * CNN_LR * steps and all(math.isfinite(x) for x in losses["cuda"])):
+        raise AssertionError(f"the CNN learner's update on the card disagrees: {res}")
+    return res
+
+
+def phase_tune_rllib(card: str, raw: dict) -> dict:
+    """Tune and RLlib on the card under a cluster of their own: (a) the
+    Tune sweep of GPT-2 small's TorchTrainer; (b) PPO on CartPole-v1
+    under a Tuner, where gymnasium is installed (its absence is recorded,
+    and (b) is not run); then (c) the Nature-CNN learner, card vs CPU.
+    ``raw`` is phase 9's result (the direct run)."""
+    import importlib.util
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = {"card": card}
+    parts = res["seconds_by_part"] = {}
+    has_gym = importlib.util.find_spec("gymnasium") is not None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as storage:
+        ray_tpu_torch.init(num_cpus=4)
+        parts["init"] = time.perf_counter() - t0
+        try:
+            res["sweep"] = _tune_sweep(card, raw, storage)
+            parts["sweep"] = time.perf_counter() - t0 - sum(parts.values())
+            if has_gym:
+                res["ppo"] = _ppo_under_tune(card, storage)
+                parts["ppo"] = time.perf_counter() - t0 - sum(parts.values())
+            else:
+                res["ppo"] = {"not_run": "gymnasium is not installed on this machine"}
+                print("[tune+rllib] (b) NOT RUN: gymnasium is not installed on this machine, "
+                      "so CartPole-v1 cannot be made; PPO on the card waits for the package "
+                      f"(ROADMAP.md Queue A item 5) — {card}", flush=True)
+        finally:
+            ray_tpu_torch.shutdown()
+    res["processes_left"] = _wait_no_port_processes("tune+rllib")
+    parts["shutdown"] = time.perf_counter() - t0 - sum(parts.values())
+    res["cnn"] = _cnn_learner(card)
+    parts["cnn"] = time.perf_counter() - t0 - sum(parts.values())
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[tune+rllib] phase took {res['seconds']:.1f} s: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
+    print("[tune+rllib] " + json.dumps(res), flush=True)
     return res
 
 
@@ -3252,6 +3682,10 @@ def main() -> int:
     data = timed("data", phase_data, card)
     sharded = timed("sharded", phase_sharded, card, data)
     pipeline = timed("pipeline", phase_pipeline, card, data)
+    tune_rllib = timed("tune and rllib", phase_tune_rllib, card, train)
+    sweep = tune_rllib["sweep"]["trials"]
+    for i, rec in enumerate(train_recs):
+        rec["in_tune_trial_launches"] = {str(lr): t["launches"][i] for lr, t in sweep.items()}
     print(f"[timing] every phase (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [fwd_rec, static_rec, *train_recs, *llama_recs,

@@ -329,7 +329,8 @@ def available_resources() -> dict:
 
 
 # Lazy submodules: the libraries (torch imports) load on first access.
-_LAZY_SUBMODULES = ("util", "train", "serve", "dag", "models", "ops", "air", "experimental", "data")
+_LAZY_SUBMODULES = ("util", "train", "serve", "dag", "models", "ops", "air", "experimental", "data",
+                    "tune", "rllib")
 
 
 def __getattr__(name):

@@ -94,3 +94,16 @@ def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
 vit_state_dict_from_jax = state_dict_from_jax
 mlp_state_dict_from_jax = state_dict_from_jax
 moe_state_dict_from_jax = state_dict_from_jax
+
+
+def rl_module_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``RLModule`` state_dict from the reference's RLModule
+    ``params`` (its ``_PiVfNet``: ``pi_*``/``vf_*`` Dense and Conv
+    layers, the heads, ``log_std`` for continuous actions)."""
+    return state_dict_from_jax(params)
+
+
+def q_module_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``QModule`` state_dict from the reference's ``_QNet``
+    ``params`` (``q_dense_*``, ``adv_head``, ``val_head``)."""
+    return state_dict_from_jax(params)

@@ -44,7 +44,7 @@ run of it over every batch (``unbroken_losses``) that the replay and the
 resume are held to.
 
 It reports once, after the last step, through ``train.report``: every
-step's loss (averaged over the ranks), the mean time of the timed steps,
+step's loss (averaged over the ranks) and the last as ``loss``, the mean time of the timed steps,
 tokens per second over all ranks, the model FLOPs utilisation a card against
 ``config["peak_flops"]`` when that is given, the flash kernels'
 launches in this process (B1, B2, B3), counted from 0 at the first step,
@@ -226,6 +226,7 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     tok_s = global_batch * seq_len * steps / wall
     metrics = {
         "losses": losses,
+        "loss": losses[-1],  # a scalar for Tune's metric and schedulers
         "finite": all(math.isfinite(x) for x in losses),
         "step_ms": wall / steps * 1e3,
         "tokens_per_s": tok_s,

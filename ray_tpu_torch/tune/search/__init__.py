@@ -1,0 +1,6 @@
+from ray_tpu_torch.tune.search.basic_variant import BasicVariantGenerator
+from ray_tpu_torch.tune.search.searcher import ConcurrencyLimiter, Searcher
+from ray_tpu_torch.tune.search.bohb import TuneBOHB
+from ray_tpu_torch.tune.search.tpe import TPESearcher
+
+__all__ = ["Searcher", "ConcurrencyLimiter", "BasicVariantGenerator", "TPESearcher"]

@@ -66,8 +66,38 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch._private.worker", "ray_tpu_torch._native.arena",
                 "ray_tpu_torch.train.torch.config", "ray_tpu_torch.train.torch.gpt2_loop",
                 "ray_tpu_torch.util.collective.cpu_group",
-                *_SERVE_PLANE_MODULES, "ray_tpu_torch.serve.llm.deployment"):
+                *_SERVE_PLANE_MODULES, "ray_tpu_torch.serve.llm.deployment",
+                *_TUNE_RLLIB_MODULES):
         assert mod in out["imported"]
+
+
+_TUNE_RLLIB_MODULES = (
+    "ray_tpu_torch.tune", "ray_tpu_torch.tune.tuner", "ray_tpu_torch.tune.tune_controller",
+    "ray_tpu_torch.tune.trainable", "ray_tpu_torch.tune.schedulers",
+    "ray_tpu_torch.tune.search.tpe", "ray_tpu_torch.tune.search.bohb",
+    "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.core.rl_module",
+    "ray_tpu_torch.rllib.core.learner", "ray_tpu_torch.rllib.env.env_runner",
+    "ray_tpu_torch.rllib.env.env_runner_group", "ray_tpu_torch.rllib.algorithms.algorithm",
+    "ray_tpu_torch.rllib.algorithms.ppo", "ray_tpu_torch.rllib.connectors",
+    "ray_tpu_torch.rllib.utils.postprocessing",
+)
+
+
+def test_tune_imports_no_torch_and_rllib_imports_without_gymnasium():
+    """A trial actor imports Tune (a trainer sweep's trial needs no
+    torch); the card machine may lack gymnasium, which RLlib imports only
+    where an env is made."""
+    code = ("import importlib, json, sys\n"
+            "import ray_tpu_torch.tune\n"
+            "tune_torch = 'torch' in sys.modules\n"
+            "sys.modules['gymnasium'] = None  # an import of it raises\n"
+            f"for m in {_TUNE_RLLIB_MODULES!r}: importlib.import_module(m)\n"
+            "print(json.dumps([tune_torch, sorted(m for m in sys.modules\n"
+            "    if m.split('.')[0] in ('jax', 'flax', 'optax', 'ray_tpu'))]))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [False, []]
 
 
 def _imports_in(path: str) -> list:
