@@ -209,7 +209,11 @@ and prints no result line):
                   a step counted in each trial's worker, the driver's 0;
                   the 3e-4 trial's losses equal phase 9's direct run to
                   1e-5 relative; the ResultGrid names the lowest-loss
-                  trial; (b) where gymnasium is installed, PPO on
+                  trial; each trial's start-up split into [timing] lines
+                  (the trial actor, the worker's start to its loop, its
+                  CUDA context, the process group, the model's init, the
+                  steps, the report, the teardown) from the cluster's
+                  actor table and the loop's stamps; (b) where gymnasium is installed, PPO on
                   CartPole-v1 under Tuner(tune.with_resources(PPO, {"cpu":
                   1, "gpu": 1})) at tests/test_rllib.py's configuration:
                   episode_return_mean past 120 within 30 iterations, the
@@ -225,7 +229,25 @@ and prints no result line):
                   same update on the CPU (its first Adam step by phase
                   8's rule; over the 16 steps every minibatch's loss to
                   5e-3 relative, beside the CPU's own spread), then timed
-                  on the card.
+                  on the card.  The podracer plane at the Nature-CNN's
+                  widths, f32, card vs CPU from the same weights, each
+                  held as (c) and then timed: (d) IMPALA's
+                  update_from_fragments, 8 updates of one [50, 8]
+                  fragment (400 frames, a termination and its autoreset
+                  row); (e) APPO's update_from_batch of 4 such fragments
+                  flattened env by env (its target policy synced after
+                  updates 2 and 4); (f) PPO's prepare_fragments (to 1e-5)
+                  and update_from_fragments of 4 fragments, minibatch
+                  128, 2 epochs; inside the cluster, (g) the sebulba
+                  InferenceServer as an actor with its module on the card
+                  (one CPU, no GPU lease): 4 CPU actors x 16 concurrent
+                  greedy calls of [8, 84, 84, 4] uint8, every answer at
+                  generation 3, actions equal to the driver's CPU module,
+                  values to 1e-4, libcuda in the server and not in the
+                  callers; (h) where gymnasium is installed, IMPALA with
+                  .podracer() on CartPole-v1, the learner on cuda, over
+                  ring channels (without gymnasium its absence is
+                  printed); no ring directory left after shutdown().
 
 Every phase's seconds are printed ([timing]) as it ends, and all of them
 with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
@@ -261,7 +283,7 @@ from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine, LLMServer, StaticBatch
 from ray_tpu_torch.serve.llm.engine import FINISHED
 from ray_tpu_torch.train import RunConfig, ScalingConfig
 from ray_tpu_torch.train.torch import TorchTrainer
-from ray_tpu_torch.train.torch.gpt2_loop import train_loop_per_worker
+from ray_tpu_torch.train.torch.gpt2_loop import model_config, train_loop_per_worker
 
 # H100 SXM published peaks (NVIDIA data sheet; dense bf16 tensor cores,
 # HBM3), the denominators of every bound below
@@ -2033,7 +2055,8 @@ def _serve_http(tag: str, card: str, engine_serve: dict, refs: dict, port: int,
     return res
 
 
-_RING_PREFIXES = ("ray_tpu_torch_serve_", "ray_tpu_torch_dag_", "ray_tpu_torch_pp")
+_RING_PREFIXES = ("ray_tpu_torch_serve_", "ray_tpu_torch_dag_", "ray_tpu_torch_pp",
+                  "ray_tpu_torch_rllib_")
 
 
 def _ring_dirs() -> list:
@@ -3254,6 +3277,77 @@ CNN_FRAME, CNN_FILTERS, CNN_ACTIONS = (84, 84, 4), ((32, 8, 4), (64, 4, 2), (64,
 CNN_ROWS, CNN_MB, CNN_EPOCHS, CNN_LR = 1024, 128, 2, 3e-4
 
 
+def _proc_start(pid: int):
+    """Wall-clock start of process ``pid`` (``/proc/<pid>/stat``'s start
+    time after boot, in clock ticks), or None once it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/stat") as f:
+            boot = next(int(line.split()[1]) for line in f if line.startswith("btime"))
+    except (OSError, StopIteration, ValueError, IndexError):
+        return None
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+class _ActorClock:
+    """Polls the cluster's actor table from a thread of the driver, every
+    ``period`` s: for each actor its class, its pid, the wall times it was
+    first listed, first ALIVE and first DEAD, and its process's start."""
+
+    def __init__(self, period: float = 0.05):
+        import threading
+
+        from ray_tpu_torch._private.worker import get_global_worker
+
+        self._gcs = get_global_worker().gcs_client
+        self._period, self.actors = period, {}
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True, name="actor-clock")
+        self._thread.start()
+
+    def _poll(self):
+        while not self._done.is_set():
+            now = time.time()
+            for a in self._gcs.call("list_actors", None):
+                rec = self.actors.setdefault(a["actor_id"], {"cls": a["class_name"], "seen": now})
+                if a.get("pid") and "pid" not in rec:
+                    rec["pid"] = a["pid"]
+                    rec["proc_start"] = _proc_start(a["pid"])
+                rec.setdefault(a["state"], now)
+            self._done.wait(self._period)
+
+    def stop(self) -> list:
+        """The records, oldest first."""
+        self._done.set()
+        self._thread.join(timeout=5)
+        return sorted(self.actors.values(), key=lambda r: r["seen"])
+
+
+def _trial_startup(dispatch: float, arrival: float, runner: dict, worker: dict,
+                   stamps: dict) -> dict:
+    """One Tune trial's seconds from its dispatch (the sweep's start or the
+    previous trial's report at the driver) to its own report there, split
+    at the trial actor's and the trainer worker's process starts and the
+    loop's stamps (``gpt2_loop``'s ``timeline``)."""
+    actor_up = max(dispatch, runner.get("proc_start") or dispatch)
+    worker_up = max(worker["seen"], worker.get("proc_start") or worker["seen"])
+    return {
+        "trial actor process": actor_up - dispatch,
+        "trial actor to its worker's lease": worker["seen"] - actor_up,
+        "worker process start": worker_up - worker["seen"],
+        "worker to its loop (runtime, config)": stamps["loop"] - worker_up,
+        "import torch and the model": stamps["imports"] - stamps["loop"],
+        "CUDA context": stamps["device"] - stamps["imports"],
+        "process group": 0.0,  # one worker: the backend forms no group
+        "model init (AdamW imports torch._dynamo)": stamps["model"] - stamps["device"],
+        "steps": stamps["steps"] - stamps["model"],
+        "report to the driver": arrival - stamps["steps"],
+        "teardown: worker gone": worker.get("DEAD", arrival) - arrival,
+        "teardown: trial actor gone": runner.get("DEAD", arrival) - arrival,
+    }
+
+
 def _tune_sweep(card: str, raw: dict, storage: str) -> dict:
     """(a) Tuner(TorchTrainer(gpt2 loop)) over phase 9's GPT-2 small batch
     and seed, lr in TUNE_LRS, TUNE_STEPS steps each, one trial at a time,
@@ -3265,14 +3359,16 @@ def _tune_sweep(card: str, raw: dict, storage: str) -> dict:
     arrivals = {}
 
     def arrived(result):  # the driver reads each trial's one report
-        arrivals[result["config"]["train_loop_config"]["lr"]] = time.perf_counter()
+        arrivals[result["config"]["train_loop_config"]["lr"]] = time.time()
         return False
 
-    cfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+    # phase 9's model, as keywords: the trial actor unpickles them without torch
+    cfg_spec = {"size": "small", "dtype": "bfloat16", "param_dtype": "float32", "remat": False}
+    cfg = model_config(cfg_spec)
     toks = np.random.default_rng(4).integers(0, PROMPT_VOCAB, size=(TRAIN_B, TRAIN_T + 1))
     trainer = TorchTrainer(
         train_loop_per_worker,
-        train_loop_config={"cfg": cfg, "seed": 0, "tokens": toks, "warmup": 0,
+        train_loop_config={"cfg": cfg_spec, "seed": 0, "tokens": toks, "warmup": 0,
                            "steps": TUNE_STEPS, "device": "cuda", "peak_flops": PEAK_BF16_FLOPS},
         scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
         run_config=RunConfig(storage_path=os.path.join(storage, "train")),
@@ -3286,22 +3382,35 @@ def _tune_sweep(card: str, raw: dict, storage: str) -> dict:
         run_config=RunConfig(name="gpt2_sweep", storage_path=storage, stop=arrived),
     )
     _reset_counts()  # the driver's counts: they must stay 0 while the trials train
-    t0 = time.perf_counter()
+    clock = _ActorClock()
+    t0 = time.time()
     results = tuner.fit()
-    wall = time.perf_counter() - t0
+    wall = time.time() - t0
+    actors = clock.stop()
     # each trial's wall: from the previous trial's report (or the sweep's
     # start) to its own, which comes once its fit() returned
-    marks = [t0] + sorted(arrivals.values())
-    trial_s = dict(zip(sorted(arrivals, key=arrivals.get),
-                       (b - a for a, b in zip(marks, marks[1:]))))
+    order = sorted(arrivals, key=arrivals.get)
+    marks = [t0] + [arrivals[lr] for lr in order]
+    trial_s = dict(zip(order, (b - a for a, b in zip(marks, marks[1:]))))
     driver = list(_launch_counts())
     trials = {}
     for r in results:
         m = r.metrics or {}
         lr = m.get("config", {}).get("train_loop_config", {}).get("lr")
         trials[lr] = {k: m.get(k) for k in ("losses", "loss", "launches", "step_ms", "pid",
-                                             "device_name", "tokens_per_s", "peak_memory_gb")}
+                                             "device_name", "tokens_per_s", "peak_memory_gb",
+                                             "timeline")}
         trials[lr]["trial_s"] = trial_s.get(lr)
+    runners = [a for a in actors if a["cls"].endswith("._TrialRunner")]
+    workers = {a.get("pid"): a for a in actors if a["cls"].endswith(".RayTrainWorker")}
+    for i, lr in enumerate(order):
+        split = _trial_startup(marks[i], marks[i + 1], runners[i], workers[trials[lr]["pid"]],
+                               trials[lr]["timeline"])
+        trials[lr]["startup_s"] = split
+        print(f"[timing] tune trial lr={lr:g} ({trial_s[lr]:.1f} s from the previous report; "
+              f"the config imported torch before the loop: "
+              f"{trials[lr]['timeline']['torch_preloaded']}): "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in split.items()), flush=True)
     best = results.get_best_result()
     best_lr = best.metrics["config"]["train_loop_config"]["lr"]
     want = [cfg.n_layer * TUNE_STEPS] * 3
@@ -3465,16 +3574,17 @@ def _cnn_batch(seed: int) -> dict:
     }
 
 
-def _recorded(learner) -> dict:
-    """Record, for each Adam step of ``learner``, its minibatch's loss, and
-    the first step's gradients and the parameters after it, until
-    ``rec["stop"]()``."""
+def _recorded(learner, method: str = "compute_loss") -> dict:
+    """Record, for each Adam step of ``learner``, the loss its ``method``
+    returned (a minibatch's, a fragment's), and the first step's
+    gradients and the parameters after it, until ``rec["stop"]()``."""
     rec = {"losses": []}
-    loss_of = learner.compute_loss
+    loss_of = getattr(learner, method)
     named = list(learner.module.named_parameters())
 
-    def compute_loss(batch):
-        out = loss_of(batch)
+    def compute_loss(*args):
+        out = loss_of(*args)
+        rec.setdefault("args", args)  # the first step's inputs
         rec["losses"].append(out[0].detach())
         return out
 
@@ -3484,14 +3594,14 @@ def _recorded(learner) -> dict:
     def after_step(optimizer, args, kwargs):
         rec.setdefault("params", {n: p.detach().cpu().clone() for n, p in named})
 
-    learner.compute_loss = compute_loss
+    setattr(learner, method, compute_loss)
     hooks = [learner.optimizer.register_step_pre_hook(before_step),
              learner.optimizer.register_step_post_hook(after_step)]
 
     def stop():
         for h in hooks:
             h.remove()
-        learner.compute_loss = loss_of
+        delattr(learner, method)  # the class's method again
 
     rec["stop"] = stop
     return rec
@@ -3594,12 +3704,459 @@ def _cnn_learner(card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# The podracer plane at the Nature-CNN's widths: IMPALA's, APPO's and
+# PPO's fragment updates on the card against the CPU, the sebulba
+# inference server on the card, and the streaming loop where gymnasium is
+# installed
+# ----------------------------------------------------------------------
+FRAG_T, FRAG_N = 50, 8  # IMPALAConfig's rollout_fragment_length x 8 envs: 400 rows
+FRAG_UPDATES = 8
+APPO_UPDATES = 4  # target_network_update_freq 2: the target syncs after updates 2 and 4
+PPO_K, PPO_MB, PPO_EPOCHS = 4, 128, 2  # 1600 rows: 12 minibatches x 2 epochs
+FRAG_TIMED = 5  # timed updates on the card after the held ones
+# IMPALAConfig's, APPOConfig's and PPOConfig's defaults
+IMPALA_CONF = {"lr": 5e-4, "gamma": 0.99, "vtrace_clip_rho": 1.0, "vtrace_clip_c": 1.0,
+               "vf_loss_coeff": 0.5, "entropy_coeff": 0.01, "seed": 0}
+APPO_CONF = {**IMPALA_CONF, "clip_param": 0.4, "use_kl_loss": False, "kl_coeff": 1.0,
+             "target_network_update_freq": 2}
+PPO_FRAG_CONF = {"lr": 3e-4, "gamma": 0.99, "lambda_": 0.95, "clip_param": 0.3,
+                 "vf_clip_param": 10.0, "vf_loss_coeff": 0.5, "entropy_coeff": 0.0, "seed": 0}
+SEBULBA_CALLERS, SEBULBA_CALLS, SEBULBA_B = 4, 16, 8
+SEBULBA_GEN = 3
+# tests/test_rllib_podracer.py's IMPALA configuration
+PODRACER_LOOP = {"num_env_runners": 2, "num_envs_per_env_runner": 4, "lr": 5e-4,
+                 "rollout_fragment_length": 32, "seed": 3, "iterations": 4}
+
+
+def _cnn_spec():
+    from ray_tpu_torch.rllib import RLModuleSpec
+
+    return RLModuleSpec(observation_dim=int(np.prod(CNN_FRAME)), action_dim=CNN_ACTIONS,
+                        hidden=(512,), obs_shape=CNN_FRAME, conv_filters=CNN_FILTERS)
+
+
+def _cnn_fragment(seed: int) -> dict:
+    """One [FRAG_T, FRAG_N] fragment as a runner writes it at Atari's
+    frame: uint8 frames, int64 actions, one termination (env 3, t = 20)
+    and its autoreset row (loss mask 0), float32 the rest."""
+    rng = np.random.default_rng(seed)
+    T, N = FRAG_T, FRAG_N
+    term = np.zeros((T, N), bool)
+    term[20, 3] = True
+    mask = np.ones((T, N), np.float32)
+    mask[21, 3] = 0.0
+    return {"cols": {
+        "obs": rng.integers(0, 256, size=(T, N) + CNN_FRAME, dtype=np.uint8),
+        "actions": rng.integers(0, CNN_ACTIONS, size=(T, N)),
+        "rewards": rng.standard_normal((T, N)).astype(np.float32),
+        "terminateds": term, "truncateds": np.zeros((T, N), bool),
+        "action_logp": (np.log(1.0 / CNN_ACTIONS) + 0.1 * rng.standard_normal((T, N))
+                        ).astype(np.float32),
+        "vf_preds": rng.standard_normal((T, N)).astype(np.float32),
+        "loss_mask": mask,
+    }, "last_values": rng.standard_normal(N).astype(np.float32), "env_steps": int(mask.sum())}
+
+
+def _env_major(frag: dict):
+    """A fragment as the flat time-ordered batch a runner's sample()
+    gives IMPALA's and APPO's learner thread: each env's T rows in turn."""
+    from ray_tpu_torch.rllib import SampleBatch
+
+    return SampleBatch({k: np.ascontiguousarray(np.swapaxes(v, 0, 1)).reshape(
+        (FRAG_T * FRAG_N,) + v.shape[2:]) for k, v in frag["cols"].items()})
+
+
+def _rel_err(got, want, floor: float = 1e-3) -> float:
+    return abs(got - want) / max(abs(want), floor)
+
+
+def _hold_learners(tag: str, card: str, learner_cls, conf: dict, method: str, run,
+                   first_metrics_tol: float) -> dict:
+    """The same update on the card, on the CPU and on the CPU from weights
+    moved by 1e-6 relative (the CPU's own spread): ``run(learner)``
+    returns each update's metrics.  Held: the first Adam step by phase
+    8's rule (the loss to 1e-4 relative, the gradients to 1e-3 of each
+    tensor's max, each parameter after it within 1e-2 lr where its
+    gradient is at least 1e-2 of its tensor's largest, else 2 lr); the
+    first update's metrics to ``first_metrics_tol`` relative, or twice the
+    CPU's own spread where that is wider (an update of many Adam steps
+    reports its last minibatch's metrics, which drift as its losses do:
+    PPO's mean_kl and grad_norm by 7.6e-2 and 4.0e-2 on the CPU alone
+    for weights moved 1e-6); every Adam
+    step's loss to CNN_LOSS_TOL; every parameter at the end within 2 lr a
+    step; all finite (the gradients' float64 fallback is explained
+    below).  Returns the card's learner beside the numbers."""
+    spec, lr = _cnn_spec(), conf["lr"]
+    learners = {key: learner_cls(spec, {**conf, "device": key.rstrip("+")})
+                for key in ("cuda", "cpu", "cpu+")}
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for p in learners["cpu+"].module.parameters():
+            p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
+        if hasattr(learners["cpu+"], "old_params"):
+            learners["cpu+"].old_params = learners["cpu+"]._copy_params()
+    recs = {key: _recorded(learner, method) for key, learner in learners.items()}
+    metrics, secs = {}, {}
+    for key, learner in learners.items():
+        t = time.perf_counter()
+        metrics[key] = run(learner)
+        secs[key] = time.perf_counter() - t
+    for r in recs.values():
+        r["stop"]()
+    losses = {key: [x.item() for x in r["losses"]] for key, r in recs.items()}
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses["cpu+"], losses["cpu"]))
+    on_card, on_cpu = recs["cuda"], recs["cpu"]
+    errs = {n: float((on_card["grads"][n] - g).abs().max() / g.abs().max())
+            for n, g in on_cpu["grads"].items()}
+    grad_err = max(errs.values())
+    # A tensor whose gradient sums terms that cancel heavily can leave an
+    # f32 sum farther than 1e-3 of its max from the exact value (APPO's
+    # first step on the pi torso's convolutions: the CPU's f32 1.4e-3 to
+    # 7.6e-3 off its float64 gradient, the card's 1e-6 to 1.6e-3).  Where
+    # card and CPU part by more than 1e-3, the card is held to the float64
+    # gradient of the same step instead: within 1e-3 of its max, or no
+    # farther than twice the CPU's own f32.
+    f64 = {}
+    if grad_err > 1e-3:
+        g64 = _f64_grads(learner_cls, conf, method, on_card["args"])
+        for n in (n for n, e in errs.items() if e > 1e-3):
+            mx = g64[n].abs().max()
+            f64[n] = {"card": float((on_card["grads"][n].double() - g64[n]).abs().max() / mx),
+                      "cpu_f32": float((on_cpu["grads"][n].double() - g64[n]).abs().max() / mx)}
+    grads_held = all(f["card"] <= max(1e-3, 2 * f["cpu_f32"]) for f in f64.values())
+    sure = {n: g.abs() >= 1e-2 * g.abs().max() for n, g in on_cpu["grads"].items()}
+    step1_sure = max(float((on_card["params"][n] - p).abs()[sure[n]].max())
+                     for n, p in on_cpu["params"].items())
+    step1_all = max(float((on_card["params"][n] - p).abs().max())
+                    for n, p in on_cpu["params"].items())
+    # two f32 spacings of the largest parameter: p + lr and p - lr, rounded
+    ulps = 2 * max(float(np.spacing(np.float32(p.abs().max()))) for p in on_cpu["params"].values())
+    first = {k: _rel_err(v, metrics["cpu"][0][k]) for k, v in metrics["cuda"][0].items()}
+    first_spread = {k: _rel_err(metrics["cpu+"][0][k], v) for k, v in metrics["cpu"][0].items()}
+    steps = len(losses["cpu"])
+    final = {k: learner.get_weights() for k, learner in learners.items()}
+    param_err = max(float(np.abs(final["cuda"][n] - p).max()) for n, p in final["cpu"].items())
+    out = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "adam_steps": steps,
+           "first_loss_rel_err": rels[0], "first_grad_err_over_max": grad_err,
+           "first_grads_vs_f64": f64,
+           "first_step_param_err_sure": step1_sure, "first_step_param_err": step1_all,
+           "first_metrics_rel_err": first, "cpu_spread_first_metrics_rel": first_spread,
+           "loss_rel_err": max(rels),
+           "cpu_spread_loss_rel": spread, "param_err": param_err, "lr": lr,
+           "held_s": secs, "metrics_cuda": metrics["cuda"][-1]}
+    f64_note = "".join(f"; {n} {f['card']:.2e} of max from its f64 gradient (tol 1e-3 or "
+                       f"twice the CPU's f32 {f['cpu_f32']:.2e})" for n, f in f64.items())
+    print(f"[tune+rllib] {tag} card vs CPU, f32, {steps} Adam steps: step 1 loss rel "
+          f"{rels[0]:.2e} (tol 1e-4), gradients {grad_err:.2e} of max (tol 1e-3{f64_note}), "
+          f"params {step1_sure:.2e} where |g| >= 1e-2 max|g| (tol {1e-2 * lr:g}), "
+          f"{step1_all:.2e} overall (tol {2 * lr:g} + {ulps:.1e}); the first update's metrics "
+          f"{ {k: f'{v:.1e}' for k, v in first.items()} } (tol {first_metrics_tol:g} or twice "
+          f"the CPU's own for weights moved 1e-6: "
+          f"{ {k: f'{v:.1e}' for k, v in first_spread.items()} }); every "
+          f"loss max rel {max(rels):.2e} (tol {CNN_LOSS_TOL:g}; the CPU's own for weights "
+          f"moved 1e-6: {spread:.2e}); params at the end {param_err:.2e} (tol "
+          f"{2 * lr * steps:g}) — {card}", flush=True)
+    finite = all(math.isfinite(x) for x in losses["cuda"]) and all(
+        math.isfinite(v) for m in metrics["cuda"] for v in m.values())
+    if not (rels[0] <= 1e-4 and grads_held and step1_sure <= 1e-2 * lr
+            and step1_all <= 2 * lr + ulps
+            and all(v <= max(first_metrics_tol, 2 * first_spread[k]) for k, v in first.items())
+            and max(rels) <= CNN_LOSS_TOL and param_err <= 2 * lr * steps and finite):
+        raise AssertionError(f"{tag}: the card's update disagrees with the CPU's: {out}")
+    return {**out, "learner": learners["cuda"]}
+
+
+def _f64_grads(learner_cls, conf: dict, method: str, args) -> dict:
+    """The first Adam step's gradients in float64 on the CPU: the same
+    initial weights (the learners' seed draws them in float32), the card
+    learner's first-step inputs."""
+    learner = learner_cls(dataclasses.replace(_cnn_spec(), dtype=torch.float64),
+                          {**conf, "device": "cpu"})
+
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        v = v.detach().cpu()
+        return v.double() if v.is_floating_point() else v
+
+    loss, _ = getattr(learner, method)(*[host(a) for a in args])
+    loss.backward()
+    return {n: p.grad for n, p in learner.module.named_parameters()}
+
+
+def _time_card(update, reps: int = FRAG_TIMED) -> list:
+    """ms of ``update()`` on the card, each run synchronised."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _impala_fragments(card: str) -> dict:
+    """(d) IMPALA's update_from_fragments, one [50, 8] Nature-CNN fragment
+    (400 rows) an update, FRAG_UPDATES updates from the same weights on
+    the card and on the CPU, held by ``_hold_learners``; then timed."""
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
+
+    frags = [_cnn_fragment(100 + i) for i in range(FRAG_UPDATES)]
+    res = _hold_learners("(d) IMPALA update_from_fragments, Nature-CNN, fragments [50, 8],",
+                         card, IMPALALearner, IMPALA_CONF, "fragment_loss",
+                         lambda lrn: [lrn.update_from_fragments([f]) for f in frags], 1e-4)
+    learner = res.pop("learner")
+    res["update_ms_all"] = _time_card(lambda: learner.update_from_fragments([frags[0]]))
+    res["update_ms"] = statistics.median(res["update_ms_all"])
+    print(f"[tune+rllib] (d) IMPALA's update of one [50, 8] fragment on the card: "
+          f"{res['update_ms']:.2f} ms (runs {[round(x, 2) for x in res['update_ms_all']]}; the "
+          f"held {FRAG_UPDATES} took {res['held_s']['cuda']:.2f} s with the first's warm-up, "
+          f"the CPU's {res['held_s']['cpu']:.2f} s); metrics {res['metrics_cuda']} — {card}",
+          flush=True)
+    return res
+
+
+def _appo_updates(card: str) -> dict:
+    """(e) APPO's own loss (the clipped surrogate against its target
+    policy) through update_from_batch, as its learner thread takes each
+    runner batch: APPO_UPDATES fragments flattened env by env, held by
+    ``_hold_learners``; the target re-synced after every second update
+    (checked on the card's learner); then timed.  The streaming path's
+    APPO update is IMPALA's fragment loss, as in the reference, which (d)
+    holds."""
+    from ray_tpu_torch.rllib import SampleBatch
+    from ray_tpu_torch.rllib.algorithms.appo import APPOLearner
+
+    batches = [_env_major(_cnn_fragment(200 + i)) for i in range(APPO_UPDATES)]
+    synced = {}  # id(learner) -> after each update, whether its target equals its weights
+
+    def run(learner):
+        out = []
+        for b in batches:
+            out.append(learner.update_from_batch(SampleBatch(b)))
+            synced.setdefault(id(learner), []).append(all(
+                torch.equal(learner.old_params[n], p.detach())
+                for n, p in learner.module.named_parameters()))
+        return out
+
+    res = _hold_learners("(e) APPO update_from_batch, Nature-CNN, 400 rows a batch,", card,
+                         APPOLearner, APPO_CONF, "compute_loss", run, 1e-4)
+    learner = res.pop("learner")
+    synced = res["target_synced_after_update"] = synced[id(learner)]
+    want = [(i + 1) % APPO_CONF["target_network_update_freq"] == 0 for i in range(APPO_UPDATES)]
+    res["update_ms_all"] = _time_card(lambda: learner.update_from_batch(SampleBatch(batches[0])))
+    res["update_ms"] = statistics.median(res["update_ms_all"])
+    print(f"[tune+rllib] (e) APPO's update of 400 rows on the card: {res['update_ms']:.2f} ms "
+          f"(runs {[round(x, 2) for x in res['update_ms_all']]}, the target policy's logp "
+          f"included); target synced after updates {synced} (want {want}) — {card}", flush=True)
+    if synced != want:
+        raise AssertionError(f"(e) APPO's target syncs {synced} != {want}")
+    return res
+
+
+def _ppo_fragments(card: str) -> dict:
+    """(f) PPO's fragment path: prepare_fragments (GAE over the merged
+    time-major columns, masked standardisation) on the card against the
+    CPU, advantages and value targets to 1e-5 of their largest; then
+    update_from_fragments of PPO_K fragments (minibatch PPO_MB, PPO_EPOCHS
+    epochs) held by ``_hold_learners`` (the learners' generators draw the
+    same permutations), then timed."""
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rllib.core.learner import Learner
+
+    frags = [_cnn_fragment(300 + i) for i in range(PPO_K)]
+    prepared = {}
+    for dev in ("cuda", "cpu"):
+        learner = PPOLearner(_cnn_spec(), {**PPO_FRAG_CONF, "device": dev})
+        cols = {k: Learner._merge_time_major(torch.as_tensor(np.stack(
+            [f["cols"][k] for f in frags])).to(dev)) for k in ("vf_preds", "rewards",
+                                                             "terminateds", "truncateds",
+                                                             "loss_mask", "obs", "actions",
+                                                             "action_logp")}
+        last = torch.as_tensor(np.concatenate([f["last_values"] for f in frags])).to(dev)
+        with torch.no_grad():
+            out = learner.prepare_fragments(cols, last)
+        prepared[dev] = {k: out[k].cpu() for k in ("advantages", "value_targets")}
+    gae_err = {k: float((prepared["cuda"][k] - v).abs().max() / v.abs().max())
+               for k, v in prepared["cpu"].items()}
+    print(f"[tune+rllib] (f) PPO prepare_fragments of {PPO_K} fragments [50, 8], card vs CPU: "
+          f"max error over max {gae_err} (tol 1e-5) — {card}", flush=True)
+    if max(gae_err.values()) > 1e-5:
+        raise AssertionError(f"(f) prepare_fragments on the card disagrees: {gae_err}")
+    res = _hold_learners(f"(f) PPO update_from_fragments, Nature-CNN, {PPO_K} fragments [50, 8], "
+                         f"minibatch {PPO_MB}, {PPO_EPOCHS} epochs,", card, PPOLearner,
+                         PPO_FRAG_CONF, "compute_loss",
+                         lambda lrn: [lrn.update_from_fragments(frags, PPO_MB, PPO_EPOCHS)],
+                         CNN_LOSS_TOL)
+    learner = res.pop("learner")
+    res["gae_err_over_max"] = gae_err
+    res["update_ms_all"] = _time_card(
+        lambda: learner.update_from_fragments(frags, PPO_MB, PPO_EPOCHS), reps=3)
+    res["update_ms"] = statistics.median(res["update_ms_all"])
+    print(f"[tune+rllib] (f) PPO's update of {PPO_K} fragments ({PPO_K * FRAG_T * FRAG_N} rows, "
+          f"{res['adam_steps']} Adam steps) on the card: {res['update_ms']:.2f} ms (runs "
+          f"{[round(x, 2) for x in res['update_ms_all']]}) — {card}", flush=True)
+    return res
+
+
+def _sebulba_frames(seed: int):
+    return np.random.default_rng(seed).integers(0, 256, size=(SEBULBA_B,) + CNN_FRAME,
+                                                dtype=np.uint8)
+
+
+@ray_tpu_torch.remote(num_cpus=0.5)
+class SebulbaCaller:
+    """A CPU actor standing in for an env runner: SEBULBA_CALLS concurrent
+    greedy compute_actions calls of [SEBULBA_B, 84, 84, 4] uint8 frames."""
+
+    def run(self, server, seeds):
+        frames = [_sebulba_frames(s) for s in seeds]
+        t = time.perf_counter()
+        answers = ray_tpu_torch.get([server.compute_actions.remote(f, False) for f in frames],
+                                    timeout=120)
+        return {"pid": os.getpid(), "wall_s": time.perf_counter() - t, "answers": answers}
+
+
+def _start_sebulba_server() -> dict:
+    """(g)'s InferenceServer actor, created at once: its process imports
+    torch and makes its CUDA context while the cluster's other work runs."""
+    from ray_tpu_torch.rllib import InferenceServer
+
+    return {"handle": ray_tpu_torch.remote(num_cpus=1)(InferenceServer).remote(
+        _cnn_spec(), 0, "cuda"), "created": time.perf_counter()}
+
+
+def _sebulba_server(card: str, started: dict) -> dict:
+    """(g) The sebulba InferenceServer (``_start_sebulba_server``) as a
+    runtime actor with its module on the card (one CPU leased, no GPU:
+    the lease _setup_podracer gives it), weights set at generation
+    SEBULBA_GEN from the driver's CPU
+    module, whose pi head is scaled by 100 so that no tie between the top
+    two logits decides an action (the smallest gap is printed and must
+    reach 1e-3).  SEBULBA_CALLERS CPU actors each send SEBULBA_CALLS
+    concurrent greedy calls: every answer carries the generation, the
+    actions equal the driver's CPU module's greedy actions, the values
+    match to 1e-4 of their largest; the server's process maps libcuda and
+    the callers' do not."""
+    module = _cnn_spec().build(torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        module.pi_head.weight.mul_(100.0)
+    server, t0 = started["handle"], time.perf_counter()
+    ray_tpu_torch.get(server.set_weights.remote(module.get_weights(), SEBULBA_GEN), timeout=120)
+    start_s = time.perf_counter() - t0
+    ready_s = time.perf_counter() - started["created"]
+    callers = [SebulbaCaller.remote() for _ in range(SEBULBA_CALLERS)]
+    rounds, results = {}, []
+    for name in ("cold", "warm"):  # the first holds the server's first forwards on the card
+        seeds = [[1000 * c + i + (500 if name == "warm" else 0) for i in range(SEBULBA_CALLS)]
+                 for c in range(SEBULBA_CALLERS)]
+        t = time.perf_counter()
+        out = ray_tpu_torch.get([c.run.remote(server, sd) for c, sd in zip(callers, seeds)],
+                                timeout=300)
+        rounds[name] = {"wall_s": time.perf_counter() - t,
+                        "caller_ms_per_call": [r["wall_s"] / SEBULBA_CALLS * 1e3 for r in out]}
+        results += [(sd, r) for sd, r in zip(seeds, out)]
+    server_pid = ray_tpu_torch.get(server.__ray_call__.remote(lambda s: os.getpid()), timeout=60)
+    maps = {"server": _maps_libcuda(server_pid),
+            "callers": sorted({r["pid"]: _maps_libcuda(r["pid"]) for _, r in results}.items())}
+    gens, mismatched, value_err, gap = set(), 0, 0.0, float("inf")
+    with torch.no_grad():
+        for sd, r in results:
+            for s, (acts, _logp, values, gen) in zip(sd, r["answers"]):
+                logits, want_v = module(_sebulba_frames(s))
+                top2 = logits.topk(2, dim=-1).values
+                gap = min(gap, float((top2[:, 0] - top2[:, 1]).min()))
+                gens.add(gen)
+                mismatched += int((acts != logits.argmax(-1).numpy()).sum())
+                value_err = max(value_err, float(np.abs(values - want_v.numpy()).max()
+                                                 / want_v.abs().max()))
+    for c in callers:
+        ray_tpu_torch.kill(c)
+    ray_tpu_torch.kill(server)
+    n_calls = SEBULBA_CALLERS * SEBULBA_CALLS
+    for r in rounds.values():
+        r["ms_per_call"] = r["wall_s"] / n_calls * 1e3
+    res = {"server_wait_s": start_s, "server_ready_s": ready_s, "rounds": rounds,
+           "calls_a_round": n_calls,
+           "generations": sorted(gens), "mismatched_actions": mismatched,
+           "value_err_over_max": value_err, "min_top2_gap": gap, "maps_libcuda": maps}
+    timing = "; ".join(
+        f"{name} round {r['wall_s']:.2f} s, {r['ms_per_call']:.2f} ms a call over all (each "
+        f"caller's {[round(x, 2) for x in r['caller_ms_per_call']]})" for name, r in rounds.items())
+    print(f"[tune+rllib] (g) sebulba InferenceServer on the card (num_cpus=1, no GPU lease; "
+          f"created at the phase's start, set at generation {SEBULBA_GEN} {ready_s:.1f} s after "
+          f"its creation, {start_s:.2f} s of it waited here): "
+          f"{SEBULBA_CALLERS} CPU actors x {SEBULBA_CALLS} concurrent greedy calls of "
+          f"[{SEBULBA_B}, 84, 84, 4] uint8, two rounds: {timing}; generations {sorted(gens)}, "
+          f"actions != the driver's CPU greedy {mismatched} of {2 * n_calls * SEBULBA_B} "
+          f"(smallest top-two gap {gap:.3e}), values {value_err:.2e} of max (tol 1e-4); "
+          f"libcuda mapped: server {maps['server']}, callers {maps['callers']} — {card}",
+          flush=True)
+    if not (gens == {SEBULBA_GEN} and mismatched == 0 and value_err <= 1e-4 and gap >= 1e-3
+            and maps["server"] and not any(m for _, m in maps["callers"])):
+        raise AssertionError(f"(g) the sebulba server's answers: {res}")
+    return res
+
+
+def _podracer_loop(card: str) -> dict:
+    """(h) IMPALA with .podracer() on CartPole-v1 at
+    tests/test_rllib_podracer.py's configuration, its learner on the
+    card: the runners stream over ring channels, the generation
+    advances, fragments arrive, the loss is finite; env-steps/s."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    c = PODRACER_LOOP
+    cfg = (IMPALAConfig().environment("CartPole-v1")
+           .env_runners(num_env_runners=c["num_env_runners"],
+                        num_envs_per_env_runner=c["num_envs_per_env_runner"])
+           .podracer().training(lr=c["lr"], rollout_fragment_length=c["rollout_fragment_length"])
+           .learners(device="cuda").debugging(seed=c["seed"]))
+    algo = cfg.build()
+    try:
+        t = time.perf_counter()
+        outs = [algo.train() for _ in range(c["iterations"])]
+        wall = time.perf_counter() - t
+        plane = algo.env_runner_group
+        kinds = sorted({rs.traj.kind for rs in plane.streams if rs.alive})
+        device = str(algo.learner_group._local.device)
+    finally:
+        algo.cleanup()
+    steps = sum(o["num_env_steps_sampled"] for o in outs)
+    res = {"kinds": kinds, "device": device, "generations": [o["weight_generation"] for o in outs],
+           "fragments_received": outs[-1]["fragments_received"], "total_loss": outs[-1]["total_loss"],
+           "env_steps": steps, "wall_s": wall, "env_steps_per_s": steps / wall}
+    print(f"[tune+rllib] (h) IMPALA .podracer() on CartPole-v1 {c}, learner on {device}: "
+          f"transports {kinds}, generations {res['generations']}, fragments received "
+          f"{res['fragments_received']}, loss {res['total_loss']:.4f}, "
+          f"{res['env_steps_per_s']:.0f} env-steps/s ({steps} in {wall:.1f} s) — {card}", flush=True)
+    if not (kinds == ["ring"] and device.startswith("cuda") and res["fragments_received"] > 0
+            and res["generations"][-1] > res["generations"][0]
+            and math.isfinite(res["total_loss"])):
+        raise AssertionError(f"(h) the streaming loop: {res}")
+    return res
+
+
+def _part(parts: dict, name: str, fn, *args):
+    """fn(*args), its seconds kept in ``parts`` and printed as a [timing] line."""
+    t = time.perf_counter()
+    out = fn(*args)
+    parts[name] = time.perf_counter() - t
+    print(f"[timing] tune and rllib {name}: {parts[name]:.1f} s", flush=True)
+    return out
+
+
 def phase_tune_rllib(card: str, raw: dict) -> dict:
     """Tune and RLlib on the card under a cluster of their own: (a) the
     Tune sweep of GPT-2 small's TorchTrainer; (b) PPO on CartPole-v1
     under a Tuner, where gymnasium is installed (its absence is recorded,
-    and (b) is not run); then (c) the Nature-CNN learner, card vs CPU.
-    ``raw`` is phase 9's result (the direct run)."""
+    and (b) is not run); (g) the sebulba inference server on the card;
+    (h) IMPALA's streaming loop, where gymnasium is installed; then,
+    without the cluster, (c) the Nature-CNN learner, (d) IMPALA's, (e)
+    APPO's and (f) PPO's fragment updates, card vs CPU.  ``raw`` is phase
+    9's result (the direct run)."""
     import importlib.util
 
     torch.cuda.empty_cache()
@@ -3607,26 +4164,42 @@ def phase_tune_rllib(card: str, raw: dict) -> dict:
     res = {"card": card}
     parts = res["seconds_by_part"] = {}
     has_gym = importlib.util.find_spec("gymnasium") is not None
+    no_gym = "gymnasium is not installed on this machine"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as storage:
         ray_tpu_torch.init(num_cpus=4)
         parts["init"] = time.perf_counter() - t0
         try:
+            server = _start_sebulba_server()  # its start-up overlaps (a)
             res["sweep"] = _tune_sweep(card, raw, storage)
             parts["sweep"] = time.perf_counter() - t0 - sum(parts.values())
             if has_gym:
                 res["ppo"] = _ppo_under_tune(card, storage)
                 parts["ppo"] = time.perf_counter() - t0 - sum(parts.values())
             else:
-                res["ppo"] = {"not_run": "gymnasium is not installed on this machine"}
+                res["ppo"] = {"not_run": no_gym}
                 print("[tune+rllib] (b) NOT RUN: gymnasium is not installed on this machine, "
                       "so CartPole-v1 cannot be made; PPO on the card waits for the package "
                       f"(ROADMAP.md Queue A item 5) — {card}", flush=True)
+            res["sebulba"] = _part(parts, "(g) sebulba server", _sebulba_server, card, server)
+            if has_gym:
+                res["podracer_loop"] = _part(parts, "(h) podracer loop", _podracer_loop, card)
+            else:
+                res["podracer_loop"] = {"not_run": no_gym}
+                print("[tune+rllib] (h) NOT RUN: gymnasium is not installed on this machine, "
+                      "so CartPole-v1 cannot be made; IMPALA's streaming loop on the card "
+                      f"waits for the package (ROADMAP.md Queue A item 5) — {card}", flush=True)
         finally:
             ray_tpu_torch.shutdown()
     res["processes_left"] = _wait_no_port_processes("tune+rllib")
+    res["rings_left"] = _ring_dirs()
+    if res["rings_left"]:
+        raise AssertionError(f"ring directories left after shutdown(): {res['rings_left']}")
     parts["shutdown"] = time.perf_counter() - t0 - sum(parts.values())
     res["cnn"] = _cnn_learner(card)
     parts["cnn"] = time.perf_counter() - t0 - sum(parts.values())
+    res["impala"] = _part(parts, "(d) IMPALA fragments", _impala_fragments, card)
+    res["appo"] = _part(parts, "(e) APPO updates", _appo_updates, card)
+    res["ppo_fragments"] = _part(parts, "(f) PPO fragments", _ppo_fragments, card)
     res["seconds"] = time.perf_counter() - t0
     print(f"[tune+rllib] phase took {res['seconds']:.1f} s: "
           f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)

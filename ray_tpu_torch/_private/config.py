@@ -227,8 +227,12 @@ _CONFIG_DEFS: Dict[str, Any] = {
     # object-store items.  Any attach failure falls back to the RPC path
     # per replica; off = always the RPC path.
     "serve_channel_dataplane": True,
-    # (The reference's RLlib stream floor, rllib_stream_min_buffer_kb,
-    # comes with RLlib: ROADMAP Queue A item 5.)
+    # Floor (KB) for one podracer trajectory ring (rllib/core/stream.py):
+    # the plane sizes each ring at max(floor, 2x the estimated fragment
+    # + slack) — about two fragments in flight per runner edge.  Deep
+    # rings are NOT free capacity: every buffered fragment ages one
+    # weight generation per learner update.
+    "rllib_stream_min_buffer_kb": 256,
     # --- drain / preemption (reference: gcs DrainNode + autoscaler drain
     # API; RLAX-style planned-interruption handling) ---
     # Fallback drain notice window when a drain_node call carries none.

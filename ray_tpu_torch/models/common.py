@@ -12,8 +12,8 @@ batch (and sequence) axes; DTensor dispatch inserts the collectives.
 
 ``Linear`` and ``Embedding`` store their weights in ``param_dtype`` and
 compute in ``dtype``, as flax's ``Dense(dtype, param_dtype)`` and
-``Embed`` do; ``init_model`` builds a model on the meta device and draws
-its weights at the scales of flax's default initialisers.
+``Embed`` do; ``init_model`` builds a model on its device without the
+default initialisers and draws its weights at the scales of flax's.
 """
 
 from __future__ import annotations
@@ -144,10 +144,32 @@ class Conv(nn.Module):
         return F.conv2d(x, self.weight.to(self.compute_dtype), bias, self.stride, pad)
 
 
+class _SkipDefaultInit(torch.overrides.TorchFunctionMode):
+    """Skips ``torch.nn.init``'s initialisers (each returns its tensor
+    untouched) while a module is built whose weights are drawn or loaded
+    afterwards.  On the meta device they compute nothing, and their meta
+    path (like ``empty_like`` of a meta tensor) imports ``torch._dynamo``
+    and sympy: 8 to 10 s in a fresh process on the card machine."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(func, "__module__", None) == "torch.nn.init":
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **kwargs)
+
+
+def meta_build(build: Callable[[], nn.Module]) -> nn.Module:
+    """``build()`` on the meta device, its modules' default initialisers
+    skipped: shapes and dtypes, no storage."""
+    with torch.device("meta"), _SkipDefaultInit():
+        return build()
+
+
 def init_model(build: Callable[[], nn.Module], generator: Optional[torch.Generator],
                device: Union[str, torch.device]) -> nn.Module:
-    """``build()`` on the meta device, materialised on ``device`` with
-    synthetic weights from ``generator``: normal draws with std
+    """``build()`` on ``device`` with the default initialisers skipped
+    (the parameters' storage is allocated there once, uninitialised),
+    then synthetic weights from ``generator``: normal draws with std
     1/sqrt(fan_in) for ``Linear`` weights and 1/sqrt(d) for ``Embedding``
     rows, zero ``Linear`` biases; every other module's own ``weight`` is
     set to 1 and ``bias`` to 0 (the norms).  ``Conv`` kernels draw as
@@ -156,9 +178,8 @@ def init_model(build: Callable[[], nn.Module], generator: Optional[torch.Generat
     no module's ``weight`` or ``bias`` are left for the caller to set.
     Returns the model in eval mode."""
     dev = resolve_device(device)
-    with torch.device("meta"):
+    with torch.device(dev), _SkipDefaultInit():
         model = build()
-    model = model.to_empty(device=dev)
     gen_dev = generator.device if generator is not None else dev
     with torch.no_grad():
         for mod in model.modules():

@@ -95,8 +95,7 @@ def _head_loss(last: Mapping[str, torch.Tensor], x: torch.Tensor, targets: torch
 
 def _stack_fn(cfg: GPT2Config):
     """fn(layers, x): the stacked layers ([n, ...] leaves) applied in turn."""
-    with torch.device("meta"):
-        block = Block(cfg)
+    block = common.meta_build(lambda: Block(cfg))
 
     def apply(layers: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         n = next(iter(layers.values())).shape[0]

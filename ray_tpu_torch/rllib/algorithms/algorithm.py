@@ -6,10 +6,12 @@ An Algorithm is a tune.Trainable: `algo.train()` runs one iteration;
 Tuner(PPO, ...) sweeps it; checkpoints flow through the same
 save/restore hooks the reference uses (Checkpointable).
 
-The port runs the synchronous single-agent path: env-runner actors on the
-CPU, the learner on ``learners(device=...)`` (``cuda`` by default).  The
-podracer streaming plane is ROADMAP Queue A item 5(b) and multi-agent
-configs item 5(c); asking for either raises ``NotImplementedError``.
+The port runs the single-agent paths: env-runner actors on the CPU, the
+learner on ``learners(device=...)`` (``cuda`` by default), synchronously
+or, with ``podracer()``, over the streaming plane (core/stream.py), whose
+sebulba inference server lives on the learner's device.  Multi-agent
+configs are ROADMAP Queue A item 5(c); building one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import numpy as np
 
-from ray_tpu_torch.rllib.core.learner import PODRACER_ITEM, LearnerGroup
+from ray_tpu_torch.rllib.core.learner import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
 from ray_tpu_torch.tune.trainable import Trainable
@@ -56,9 +58,9 @@ class AlgorithmConfig:
         # Policy-inference device for env runners ("cpu" keeps per-step
         # calls off the learner's card; "cuda" raises without one).
         self.inference_backend = "cpu"
-        # podracer streaming plane (the reference's core/stream.py; not
-        # ported, ROADMAP Queue A item 5(b)): its fields stay so a
-        # reference config carries over, and building with it on raises.
+        # podracer streaming plane (core/stream.py): env runners stream
+        # fixed-shape trajectory fragments over compiled channels into
+        # the learner instead of synchronous sample()/get() round-trips.
         self.podracer_enabled = False
         # "anakin": action selection inside the runner's jitted step
         # (cheap envs/policies); "sebulba": a shared continuous-batching
@@ -133,10 +135,9 @@ class AlgorithmConfig:
                  broadcast_interval: Optional[int] = None,
                  trajectory_queue_size: Optional[int] = None):
         """Enable the podracer streaming plane (sebulba/anakin split;
-        PAPERS.md 'Podracer architectures for scalable RL').  Not ported:
-        ``enabled=True`` raises."""
-        if enabled:
-            raise NotImplementedError(f"podracer(enabled=True): {PODRACER_ITEM}")
+        PAPERS.md 'Podracer architectures for scalable RL'): env runners
+        stream trajectory fragments asynchronously over compiled-DAG
+        channels; the learner never waits on a rollout round-trip."""
         self.podracer_enabled = enabled
         if policy_mode is not None:
             if policy_mode not in ("anakin", "sebulba"):
@@ -261,8 +262,6 @@ class Algorithm(Trainable):
         cfg = self.algo_config
         if cfg.is_multi_agent:
             raise NotImplementedError(f"multi_agent() configs: {REST_ITEM}")
-        if cfg.podracer_enabled:
-            raise NotImplementedError(f"podracer(enabled=True): {PODRACER_ITEM}")
         env_creator = cfg.make_env_creator()
         probe_env = env_creator()
         self.module_spec = RLModuleSpec.from_gym_env(
@@ -272,6 +271,8 @@ class Algorithm(Trainable):
             conv_filters=cfg.model.get("conv_filters"),
         )
         probe_env.close()
+        if cfg.podracer_enabled:
+            return self._setup_podracer(env_creator)
         self.env_runner_group = EnvRunnerGroup(
             env_creator,
             self.module_spec,
@@ -297,6 +298,58 @@ class Algorithm(Trainable):
             resources={"num_cpus": cfg.num_cpus_per_learner},
         )
         self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        self._timesteps_total = 0
+
+    def _setup_podracer(self, env_creator):
+        """Podracer plane: TrajectoryPlane (streaming env runners over
+        compiled channels) + local learner + PodracerDriver; replaces
+        the synchronous EnvRunnerGroup entirely (the plane duck-types
+        the group surface the driver touches).  In sebulba mode the
+        inference server's module lives on the learner's device; it
+        leases one CPU and no GPU, as the reference's server takes the
+        TPU without a lease, so a trial that holds the card still places
+        it."""
+        from ray_tpu_torch.rllib.core.stream import PodracerDriver, TrajectoryPlane
+
+        cfg = self.algo_config
+        if cfg.num_learners > 0:
+            raise ValueError("the podracer plane requires a local learner (num_learners=0)")
+        inference_handle = None
+        if cfg.policy_mode == "sebulba":
+            import ray_tpu_torch
+
+            from ray_tpu_torch.rllib.core.inference import InferenceServer
+
+            inference_handle = ray_tpu_torch.remote(num_cpus=1)(InferenceServer).remote(
+                self.module_spec, cfg.seed, cfg.learner_device
+            )
+        self.env_runner_group = TrajectoryPlane(
+            env_creator,
+            self.module_spec,
+            num_env_runners=max(1, cfg.num_env_runners),
+            num_envs_per_runner=cfg.num_envs_per_env_runner,
+            fragment_length=cfg.rollout_fragment_length,
+            seed=cfg.seed,
+            num_cpus_per_runner=cfg.num_cpus_per_env_runner,
+            restart_failed=cfg.restart_failed_env_runners,
+            policy_mode=cfg.policy_mode,
+            inference_handle=inference_handle,
+            trajectory_queue_size=cfg.trajectory_queue_size,
+            env_to_module=cfg.env_to_module,
+            module_to_env=cfg.module_to_env,
+        )
+        self.learner_group = LearnerGroup(
+            type(self).learner_class,
+            self.module_spec,
+            config=self._learner_config(),
+            num_learners=0,
+        )
+        self._podracer = PodracerDriver(
+            self.env_runner_group,
+            self.learner_group,
+            max_weight_lag=cfg.max_weight_lag,
+            broadcast_interval=cfg.broadcast_interval,
+        )
         self._timesteps_total = 0
 
     def _needs_advantages(self) -> bool:

@@ -4,15 +4,16 @@ clipped surrogate + clipped value loss + entropy bonus).
 
 The update runs on the learner's device (``cuda`` by default); rollouts
 come from CPU env-runner actors (SURVEY.md §2.5: env runners stay CPU
-actors).  The streaming path (``prepare_fragments``, the podracer step)
-is ROADMAP Queue A item 5(b) and multi-agent PPO item 5(c)."""
+actors), synchronously or, with ``podracer()``, streamed as fragments
+whose GAE the learner computes (``prepare_fragments``).  Multi-agent PPO
+is ROADMAP Queue A item 5(c)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import PODRACER_ITEM, Learner
+from ray_tpu_torch.rllib.core.learner import Learner
 from ray_tpu_torch.rllib.utils.postprocessing import standardize
 from ray_tpu_torch.rllib.utils.sample_batch import (
     ACTIONS,
@@ -20,7 +21,11 @@ from ray_tpu_torch.rllib.utils.sample_batch import (
     LOGP,
     LOSS_MASK,
     OBS,
+    REWARDS,
+    TERMINATEDS,
+    TRUNCATEDS,
     VALUE_TARGETS,
+    VF_PREDS,
 )
 
 
@@ -79,7 +84,41 @@ class PPOLearner(Learner):
         return total, metrics
 
     def prepare_fragments(self, cols: Dict[str, Any], last_values):
-        raise NotImplementedError(f"PPOLearner.prepare_fragments: {PODRACER_ITEM}")
+        """GAE over time-major [T, B] fragment columns — the host-side
+        per-episode scan + concat + standardize of the synchronous path,
+        on the learner's device.  Truncation and termination both cut the
+        advantage chain; truncated bootstraps are 0 (the same accepted
+        bias as the host path's fragment boundaries).  Its inputs are
+        data columns, so its outputs carry no gradient (the reference's
+        stop_gradient on the targets)."""
+        import torch
+
+        gamma = self.config.get("gamma", 0.99)
+        lam = self.config.get("lambda_", 0.95)
+        v = cols[VF_PREDS]
+        r = cols[REWARDS]
+        done = torch.clamp(cols[TERMINATEDS].float() + cols[TRUNCATEDS].float(), 0.0, 1.0)
+        valid = cols[LOSS_MASK] if LOSS_MASK in cols else torch.ones_like(r)
+        next_v = torch.cat([v[1:], last_values[None]], dim=0) * (1.0 - done)
+        deltas = r + gamma * next_v - v
+        acc = torch.zeros_like(v[0])
+        adv = torch.empty_like(v)
+        for t in range(r.shape[0] - 1, -1, -1):
+            acc = deltas[t] + gamma * lam * (1.0 - done[t]) * acc
+            adv[t] = acc
+        targets = adv + v
+        denom = valid.sum() + 1e-8
+        mean = (adv * valid).sum() / denom
+        var = (((adv - mean) ** 2) * valid).sum() / denom
+        adv = (adv - mean) / torch.clamp(torch.sqrt(var), min=1e-8)
+        return {
+            OBS: cols[OBS],
+            ACTIONS: cols[ACTIONS],
+            LOGP: cols[LOGP],
+            ADVANTAGES: adv,
+            VALUE_TARGETS: targets,
+            LOSS_MASK: valid,
+        }
 
 
 class PPO(Algorithm):
@@ -94,11 +133,14 @@ class PPO(Algorithm):
             vf_clip_param=cfg.vf_clip_param,
             vf_loss_coeff=cfg.vf_loss_coeff,
             entropy_coeff=cfg.entropy_coeff,
+            lambda_=cfg.lambda_,  # GAE on the streaming path
         )
         return out
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.algo_config
+        if cfg.podracer_enabled:
+            return self._podracer_step()
         # ① synchronous parallel rollouts (ppo.py:408)
         runners = max(1, cfg.num_env_runners)
         per_runner = max(1, cfg.train_batch_size // (runners * cfg.num_envs_per_env_runner))
@@ -113,4 +155,25 @@ class PPO(Algorithm):
         self.env_runner_group.sync_weights(self.learner_group.get_weights())
         out = dict(metrics)
         out["num_env_steps_sampled"] = batch.count
+        return out
+
+    def _podracer_step(self) -> Dict[str, Any]:
+        """Streaming PPO: a FIXED count of fragments per update (static
+        (K, T, N) shapes), GAE/standardize/concat and the epoch x
+        minibatch schedule on the learner's device, weights published
+        back generation-tagged without stalling runners."""
+        cfg = self.algo_config
+        drv = self._podracer
+        per_frag = cfg.rollout_fragment_length * cfg.num_envs_per_env_runner
+        k = max(1, round(cfg.train_batch_size / per_frag))
+        frags = drv.collect(k)
+        metrics = self.learner_group.update_from_fragments(
+            frags, minibatch_size=cfg.minibatch_size, num_epochs=cfg.num_epochs
+        )
+        drv.after_update()
+        steps = sum(int(f["env_steps"]) for f in frags)
+        self._timesteps_total += steps
+        out = dict(metrics)
+        out["num_env_steps_sampled"] = steps
+        out.update(drv.metrics())
         return out

@@ -12,21 +12,28 @@ weights and then the epoch permutations, both on the CPU, so a learner on
 the card and one on the CPU start from the same weights and take the
 same minibatches.
 
-The reference's streaming fragment path (``update_from_fragments``,
-``prepare_fragments``, ``fragment_loss``) belongs to the podracer plane,
-ROADMAP Queue A item 5(b); it raises ``NotImplementedError`` here.
+The streaming fragment path (``update_from_fragments``, the podracer
+plane's update) takes ``[K, T, N]`` fragments, merges them time-major and
+either steps on the time-major columns (``fragment_loss``, V-trace) or
+derives training rows (``prepare_fragments``, PPO's GAE) and runs the
+epoch schedule over them.  The reference fuses all of it into one jitted
+dispatch; here it is eager torch on the learner's device.
+
+Every optimizer step holds the learner's weight lock, and
+``get_weights`` takes it: a thread that steps the learner (IMPALA's
+``LearnerThread``) and a driver that reads weights for a broadcast never
+see half an Adam step.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, List, Optional
+import threading
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 logger = logging.getLogger(__name__)
-
-PODRACER_ITEM = "ROADMAP.md Queue A item 5(b), the podracer streaming plane"
 
 
 def _pad_rows(count: int, multiple: int) -> np.ndarray:
@@ -54,6 +61,9 @@ class Learner:
         self.module_spec = module_spec
         self.device = resolve_device(self.config.get("device", "cuda"))
         if self.device.type == "cuda":
+            if self.device.index is None:
+                # a card by index: the learner may step on another thread
+                self.device = torch.device("cuda", torch.cuda.current_device())
             # float32 means float32: the CPU learner is its reference
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -66,6 +76,8 @@ class Learner:
             betas=(0.9, 0.999), eps=1e-8,
         )
         self._metrics: Dict[str, float] = {}
+        # held by every parameter update and by get_weights
+        self._weights_lock = threading.Lock()
 
     # -- subclass API ----------------------------------------------------
     def compute_loss(self, batch: Dict[str, Any]) -> Any:
@@ -87,11 +99,16 @@ class Learner:
         return {k: torch.as_tensor(np.asarray(v)[idx]).to(self.device) for k, v in batch.items()}
 
     def _step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """One loss -> gradient -> Adam step; metrics stay tensors."""
+        """One loss -> gradient -> Adam step on ``compute_loss``."""
+        return self._descend(lambda: self.compute_loss(batch))
+
+    def _descend(self, loss_fn: Callable[[], Any]) -> Dict[str, Any]:
+        """One loss -> gradient -> Adam step on ``loss_fn()``'s (loss,
+        metrics); metrics stay tensors."""
         import torch
 
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.compute_loss(batch)
+        loss, metrics = loss_fn()
         loss.backward()
         grads = [p.grad for p in self.module.parameters() if p.grad is not None]
         grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
@@ -101,7 +118,8 @@ class Learner:
             clipping = grad_norm >= self.grad_clip
             for g in grads:
                 g.copy_(torch.where(clipping, g / grad_norm * self.grad_clip, g))
-        self.optimizer.step()
+        with self._weights_lock:
+            self.optimizer.step()
         metrics = dict(metrics)
         metrics["total_loss"] = loss.detach()
         metrics["grad_norm"] = grad_norm.detach()  # before clipping
@@ -133,40 +151,101 @@ class Learner:
         padded rows from the learner's generator, truncated to whole
         minibatches and walked in order.  Reports the last minibatch's
         metrics."""
-        import torch
-
         self.before_update(batch)
         count = batch.count
         mb = min(minibatch_size, count)
         idx = _pad_rows(count, mb)
-        padded = len(idx)
-        n_mb = max(1, padded // mb)
+        return self._finish(self._epochs(self._to_device(batch, idx), len(idx), mb, num_epochs))
+
+    def _epochs(self, rows: Dict[str, Any], count: int, mb: int, num_epochs: int) -> Dict[str, Any]:
+        """The reference's ``_epochs_schedule`` over ``count`` rows on the
+        device: each epoch a fresh permutation from the learner's
+        generator, truncated to whole minibatches of ``mb`` and walked in
+        order.  Returns the last minibatch's metrics."""
+        import torch
+
+        n_mb = max(1, count // mb)
         take = n_mb * mb
-        rows = self._to_device(batch, idx)
-        perms = torch.stack([torch.randperm(padded, generator=self._gen)[:take]
+        perms = torch.stack([torch.randperm(count, generator=self._gen)[:take]
                              for _ in range(num_epochs)]).to(self.device)
         metrics: Dict[str, Any] = {}
         for perm in perms:
             for j in range(n_mb):
                 sel = perm[j * mb:(j + 1) * mb]
                 metrics = self._step({k: v[sel] for k, v in rows.items()})
+        return metrics
+
+    # -- streaming-fragment update (podracer plane) ----------------------
+    # Fragments arrive as fixed-shape [T, N] time-major columns (see
+    # env_runner._collect_fragment); everything the synchronous path did
+    # on the host — GAE / V-trace targets, concat, standardize, the
+    # minibatch schedule — happens here on the learner's device.
+
+    def prepare_fragments(self, cols: Dict[str, Any], last_values) -> Dict[str, Any]:
+        """Hook (non-time-order learners): derive training columns from
+        time-major [T, B] fragment tensors + [B] bootstrap values.  Must
+        return a dict of [T, B, ...] tensors ready to flatten into SGD
+        rows.  PPO computes GAE + masked standardization here."""
+        raise NotImplementedError
+
+    def fragment_loss(self, cols: Dict[str, Any], last_values):
+        """Hook (preserve_time_order learners): loss directly on the
+        time-major [T, B] columns (IMPALA's V-trace scan).  Returns
+        (loss, metrics)."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _merge_time_major(x):
+        """[K, T, N, ...] -> [T, K*N, ...]: fragments from any mix of
+        runners concat along the batch axis."""
+        x = x.movedim(0, 1)
+        return x.reshape(x.shape[0], x.shape[1] * x.shape[2], *x.shape[3:])
+
+    def update_from_fragments(
+        self, frags: List[dict], minibatch_size: Optional[int] = None, num_epochs: int = 1
+    ) -> Dict[str, float]:
+        """One update from a batch of streamed trajectory fragments:
+        advantage targets, concat and the whole epoch x minibatch
+        schedule on the learner's device.  A time-order learner takes
+        ``num_epochs`` Adam steps on the merged time-major columns; any
+        other derives rows with ``prepare_fragments`` and runs the epoch
+        schedule over the K*T*N rows (no padding)."""
+        import torch
+
+        if not frags:
+            raise ValueError("update_from_fragments needs at least one fragment")
+        keys = frags[0]["cols"].keys()
+        cols = {
+            k: torch.as_tensor(np.stack([np.asarray(f["cols"][k]) for f in frags])).to(self.device)
+            for k in keys
+        }
+        last_values = torch.as_tensor(
+            np.stack([np.asarray(f["last_values"]) for f in frags])).to(self.device)
+        K, T, N = last_values.shape[0], *next(iter(cols.values())).shape[1:3]
+        tm = {k: self._merge_time_major(v) for k, v in cols.items()}
+        last = last_values.reshape(-1)
+        if self.preserve_time_order:
+            metrics: Dict[str, Any] = {}
+            for _ in range(num_epochs):
+                metrics = self._descend(lambda: self.fragment_loss(tm, last))
+        else:
+            count = K * T * N
+            with torch.no_grad():
+                prepared = self.prepare_fragments(tm, last)
+            rows = {k: v.reshape((count,) + tuple(v.shape[2:])) for k, v in prepared.items()}
+            metrics = self._epochs(rows, count, min(minibatch_size or count, count), num_epochs)
         return self._finish(metrics)
-
-    def update_from_fragments(self, frags, minibatch_size=None, num_epochs: int = 1):
-        raise NotImplementedError(f"update_from_fragments: {PODRACER_ITEM}")
-
-    def prepare_fragments(self, cols, last_values):
-        raise NotImplementedError(f"prepare_fragments: {PODRACER_ITEM}")
-
-    def fragment_loss(self, cols, last_values):
-        raise NotImplementedError(f"fragment_loss: {PODRACER_ITEM}")
 
     # -- weights / checkpoints ------------------------------------------
     def get_weights(self) -> Dict[str, np.ndarray]:
-        return self.module.get_weights()
+        """One generation's weights as numpy: taken under the weight lock,
+        so never between two halves of an optimizer step."""
+        with self._weights_lock:
+            return self.module.get_weights()
 
     def set_weights(self, weights):
-        self.module.set_weights(weights)
+        with self._weights_lock:
+            self.module.set_weights(weights)
 
     def get_state(self) -> Dict[str, Any]:
         """Weights and Adam's moments as numpy (a checkpoint from the card
@@ -250,7 +329,16 @@ class LearnerGroup:
         return results[0]
 
     def update_from_fragments(self, frags, minibatch_size: Optional[int] = None, num_epochs: int = 1) -> Dict[str, float]:
-        raise NotImplementedError(f"update_from_fragments: {PODRACER_ITEM}")
+        """Streaming update (podracer plane).  The learner lives in the
+        driver process (num_learners=0); remote learner actors would put
+        the object store back on the hot path the channel plane exists to
+        avoid."""
+        if self._local is None:
+            raise ValueError(
+                "the podracer streaming plane requires a local learner "
+                "(num_learners=0)"
+            )
+        return self._local.update_from_fragments(frags, minibatch_size, num_epochs)
 
     def get_weights(self):
         import ray_tpu_torch

@@ -199,13 +199,12 @@ def _gpt2_merge(cfg, n_stages: int, stage_trees: List[Any]) -> Any:
 
 
 def _gpt2_blocks(cfg, params, x, lo: int, hi: int):
-    import torch
     from torch.func import functional_call
 
+    from ray_tpu_torch.models.common import meta_build
     from ray_tpu_torch.models.gpt2 import Block
 
-    with torch.device("meta"):
-        block = Block(cfg)
+    block = meta_build(lambda: Block(cfg))
     for i in range(lo, hi):
         prefix = f"h_{i}."
         layer = {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}

@@ -2,8 +2,10 @@
 counterpart of ``bench.py``'s in-framework body: the same train step the
 raw run drives, inside ``fit()``).
 
-Each rank builds the model, from ``config["state_dict"]`` when it is given
-and otherwise from ``config["seed"]``, and takes ``warmup + steps`` AdamW
+Each rank builds the model of ``config["cfg"]`` (a ``GPT2Config``, or a
+dict of its keywords that unpickles without torch: ``model_config``), from
+``config["state_dict"]`` when it is given and otherwise from
+``config["seed"]``, and takes ``warmup + steps`` AdamW
 steps (``models/gpt2.py``'s ``make_train_step`` and ``make_adamw``). Its
 batches come from one of two sources:
 
@@ -49,6 +51,12 @@ tokens per second over all ranks, the model FLOPs utilisation a card against
 ``config["peak_flops"]`` when that is given, the flash kernels'
 launches in this process (B1, B2, B3), counted from 0 at the first step,
 the process id and, on ``cuda``, the card's peak memory over the steps.
+``timeline`` holds the wall-clock times (``time.time()``) at which the
+loop began (``loop``; ``torch_preloaded`` says whether unpickling the
+config had imported torch before it), had imported torch and the model
+(``imports``), its card was ready (``device``: the CUDA context made), its model and optimizer were built (``model``),
+its steps had run (``steps``) and it reported (``report``): with the
+process's start time these split a trial's start-up.
 With ``config["checkpoint"]`` rank 0 also reports the parameters.
 
 Runs on ``config["device"]`` (default ``cuda``); float32 there means
@@ -76,6 +84,27 @@ def worker_device(name: str, local_rank: int):
     return device
 
 
+def model_config(spec):
+    """``config["cfg"]`` as a ``GPT2Config``: one already, or a dict of its
+    keywords with ``"size"`` (``tiny``, ``small``, ``medium``, ``large``;
+    default ``small``) and dtypes by name (``"bfloat16"``).  The dict
+    unpickles without torch, so a Tune trial actor that carries a
+    trainer's config never imports it (8 s in a fresh process on the card
+    machine): only the workers do."""
+    if isinstance(spec, dict):
+        import torch
+
+        from ray_tpu_torch.models import gpt2
+
+        kw = dict(spec)
+        size = kw.pop("size", "small")
+        for key in ("dtype", "param_dtype"):
+            if isinstance(kw.get(key), str):
+                kw[key] = getattr(torch, kw[key])
+        return getattr(gpt2.GPT2Config, size)(**kw)
+    return spec
+
+
 def _allreduce_mean_grads(optimizer, args, kwargs) -> None:
     """Optimizer step pre-hook: every gradient becomes its mean over the
     process group."""
@@ -90,10 +119,14 @@ def _allreduce_mean_grads(optimizer, args, kwargs) -> None:
 
 
 def train_loop_per_worker(config: Dict[str, Any]) -> None:
+    import sys
+    import time
+
+    stamps = {"loop": time.time(), "torch_preloaded": "torch" in sys.modules}
+
     import dataclasses
     import math
     import os
-    import time
 
     import torch
     import torch.distributed as dist
@@ -102,13 +135,16 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.ops import flash_attention as fa
 
+    stamps["imports"] = time.time()
     ctx = train.get_context()
     rank, world = ctx.get_world_rank(), ctx.get_world_size()
     device = worker_device(config.get("device", "cuda"), ctx.get_local_rank())
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = config["cfg"]
+        torch.cuda.synchronize(device)  # the CUDA context exists from here
+    stamps["device"] = time.time()
+    cfg = model_config(config["cfg"])
 
     def init_model(gen):
         if config.get("state_dict") is not None:
@@ -137,6 +173,7 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
             optimizer.register_step_pre_hook(_allreduce_mean_grads)
         step = gpt2.make_train_step(cfg, optimizer)
 
+    stamps["model"] = time.time()
     warmup, steps = config.get("warmup", 0), config["steps"]
 
     def sync():
@@ -198,6 +235,7 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     losses += [one_step() for _ in range(steps)]
     sync()
     wall = time.perf_counter() - t0
+    stamps["steps"] = time.time()
     launches = [fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
                 fa.flash_attention_dkv.launches]
     losses = torch.stack(losses)
@@ -259,6 +297,8 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     ckpt = None
     if config.get("checkpoint") and rank == 0:
         ckpt = train.Checkpoint.from_pytree(model.state_dict())
+    stamps["report"] = time.time()
+    metrics["timeline"] = stamps
     train.report(metrics, checkpoint=ckpt)
 
 

@@ -1,6 +1,6 @@
-"""Dataplane chaos drills of the port: copies of the serve, pipeline-plane
-and compiled-DAG drills of ``tests/test_dataplane_chaos.py`` (the Podracer
-drill waits for RLlib).  The compiled-channel layer that
+"""Dataplane chaos drills of the port: copies of the serve, pipeline-plane,
+podracer and compiled-DAG drills of ``tests/test_dataplane_chaos.py``.
+The compiled-channel layer that
 carries serve calls and token streams and compiled-DAG edges is drilled
 with the seeded ``chan:<path-glob>:<action>`` chaos rules, and every
 consumer must recover with TYPED errors and ZERO corrupted values
@@ -14,6 +14,10 @@ delivered to user code:
     response side)    lazy re-attach       corrupt)
     pipeline plane    checkpoint-restart,  checkpoint-restart,      reattach/StageFailed
                       loss parity          loss parity              (kill drill: test_torch_pipeline_plane)
+    podracer plane    edge retired, runner (same CRC path)          reattach, else respawn
+                      respawned; a corrupt                          (kill drill:
+                      weight snapshot is                            test_torch_rllib_podracer)
+                      never adopted
     compiled DAG      graph fails CLOSED   transparent epoch        transparent epoch
                       (multiplicity        reattach + seq replay,   reattach + seq replay,
                       unknowable), typed   exact                    exact
@@ -189,6 +193,51 @@ def test_pipeline_plane_corrupt_and_torn_frames_restart_with_parity(chaos_env):
         assert losses == pytest.approx(ref, abs=2e-5)
     finally:
         plane.stop()
+
+
+@pytest.mark.slow  # ~20 s respawn drill; dataplane chaos smoke covers the path
+def test_podracer_stream_corruption_retires_edge_and_respawns(chaos_env):
+    """Runner-side fault: a corrupted trajectory fragment is caught by
+    the intake's CRC check (typed, counted), the edge is retired and the
+    runner respawned at the current generation; a corrupted weight
+    broadcast is never adopted (the runner keeps its previous snapshot).
+    Training proceeds through the churn with finite losses and zero
+    garbage fragments (per-runner seq contiguity is asserted inside the
+    plane)."""
+    import time
+
+    import numpy as np
+    import test_torch_spmd as torch_spmd
+    from test_torch_rllib_podracer import _ppo_podracer_cfg
+
+    chaos_env(
+        "chan:*ray_tpu_torch_rllib_*/traj:corrupt_frame:at=6,"
+        "chan:*ray_tpu_torch_rllib_*/weights:corrupt_frame:at=2"
+    )
+    ray_tpu_torch.init(num_cpus=4)
+
+    def run():
+        algo = _ppo_podracer_cfg().build()
+        try:
+            outs = [algo.train() for _ in range(4)]
+            plane = algo.env_runner_group
+            deadline = time.monotonic() + 60
+            while plane.replacements < 1 and time.monotonic() < deadline:
+                algo.train()
+            last = algo.train()
+            return (outs, last, plane.runner_deaths, plane.replacements,
+                    sum(rs.alive for rs in plane.streams))
+        finally:
+            algo.cleanup()
+
+    outs, last, deaths, replacements, alive = torch_spmd.within(run, 120.0)
+    for out in outs:
+        assert out["num_env_steps_sampled"] > 0
+        assert np.isfinite(out["total_loss"])
+    # at least one runner hit its corrupted fragment, was retired typed
+    # (never delivered) and replaced at the live generation
+    assert deaths >= 1 and replacements >= 1 and alive >= 1
+    assert np.isfinite(last["total_loss"])
 
 
 def test_dag_socket_torn_and_drop_reattach_exact(chaos_env):

@@ -3,7 +3,10 @@ autoreset and RLModule-shape tests on the port (no JAX here; the module
 test draws from a torch generator), and the port's checks that need no
 cluster: the reference's names and paths that are not ported raise,
 naming their ROADMAP item; cuda refused without a card; a remote cuda
-learner's GPU lease."""
+learner's GPU lease; the podracer plane's pieces in one process (a
+fragment's columns and sizes, the inference server's batched answers,
+the learner's weight lock, APPO's target copy, the learner thread's
+errors)."""
 
 import re
 
@@ -111,7 +114,6 @@ def test_rl_module_shapes():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("IMPALA", "5(b)"), ("APPO", "5(b)"), ("InferenceServer", "5(b)"), ("TrajectoryPlane", "5(b)"),
     ("DQN", "5(c)"), ("SAC", "5(c)"), ("CQL", "5(c)"), ("BC", "5(c)"), ("MARWIL", "5(c)"),
     ("DreamerV3", "5(c)"), ("MultiAgentEnv", "5(c)"), ("ReplayBuffer", "5(c)"),
 ])
@@ -123,21 +125,12 @@ def test_names_not_ported_raise_naming_their_item(name, item):
 
 
 def test_deferred_paths_raise_naming_their_item():
-    from ray_tpu_torch.rllib import LearnerGroup, PPOConfig, RLModuleSpec
-    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rllib import PPOConfig
 
-    with pytest.raises(NotImplementedError, match=r"item 5\(b\)"):
-        PPOConfig().podracer(enabled=True)
     cfg = (PPOConfig().environment("CartPole-v1").learners(device="cpu")
            .multi_agent(policies={"p0": None}, policy_mapping_fn=lambda a: "p0"))
     with pytest.raises(NotImplementedError, match=r"item 5\(c\)"):
         cfg.build()
-    spec = RLModuleSpec(observation_dim=4, action_dim=2)
-    group = LearnerGroup(PPOLearner, spec, config={"device": "cpu"})
-    with pytest.raises(NotImplementedError, match=r"item 5\(b\)"):
-        group.update_from_fragments([{}])
-    with pytest.raises(NotImplementedError, match=r"item 5\(b\)"):
-        group._local.prepare_fragments({}, None)
 
 
 def test_cuda_learner_and_inference_refuse_a_machine_without_a_card(monkeypatch):
@@ -176,3 +169,206 @@ def test_a_remote_cuda_learner_leases_a_gpu_beside_its_cpus(monkeypatch):
     LearnerGroup(PPOLearner, spec, config={}, num_learners=2, resources={"num_cpus": 2})
     LearnerGroup(PPOLearner, spec, config={"device": "cpu"}, num_learners=1)
     assert asked == [{"num_cpus": 2, "num_gpus": 1}, {"num_cpus": 1}]
+
+
+def test_podracer_configs_build_their_options():
+    """podracer() turns the plane on with its options; IMPALA's and APPO's
+    configs carry the reference's defaults."""
+    from ray_tpu_torch.rllib import APPO, IMPALA, APPOConfig, IMPALAConfig, PPOConfig
+
+    cfg = PPOConfig().podracer(policy_mode="sebulba", max_weight_lag=2, broadcast_interval=3,
+                               trajectory_queue_size=5)
+    assert (cfg.podracer_enabled, cfg.policy_mode, cfg.max_weight_lag, cfg.broadcast_interval,
+            cfg.trajectory_queue_size) == (True, "sebulba", 2, 3, 5)
+    with pytest.raises(ValueError, match="anakin"):
+        PPOConfig().podracer(policy_mode="tpu")
+    impala, appo = IMPALAConfig(), APPOConfig()
+    assert impala.algo_class is IMPALA and appo.algo_class is APPO
+    assert (impala.rollout_fragment_length, impala.max_weight_lag, impala.lr) == (50, 16, 5e-4)
+    assert (appo.clip_param, appo.target_network_update_freq, appo.use_kl_loss) == (0.4, 2, False)
+
+
+def _image_env():
+    import gymnasium as gym
+
+    class Frames(gym.Env):
+        """Random uint8 frames, 3 actions, episodes of 5 steps."""
+
+        observation_space = gym.spaces.Box(0, 255, (6, 6, 2), np.uint8)
+        action_space = gym.spaces.Discrete(3)
+
+        def reset(self, seed=None, options=None):
+            super().reset(seed=seed)
+            self._t = 0
+            return self.np_random.integers(0, 256, (6, 6, 2), dtype=np.uint8), {}
+
+        def step(self, action):
+            self._t += 1
+            obs = self.np_random.integers(0, 256, (6, 6, 2), dtype=np.uint8)
+            return obs, 1.0, self._t >= 5, False, {}
+
+    return Frames()
+
+
+@pytest.mark.parametrize("env", ["CartPole-v1", "frames"])
+def test_a_fragment_crosses_as_numpy_of_the_reference_dtypes(env):
+    """_collect_fragment's [T, N] columns are numpy arrays of the
+    reference's dtypes (uint8 frames stay uint8, int64 discrete actions,
+    bool flags, float32 the rest), autoreset rows masked, and the ring
+    sizing reads the env's own obs dtype."""
+    import gymnasium as gym
+
+    from ray_tpu_torch.rllib import RLModuleSpec, SingleAgentEnvRunner
+    from ray_tpu_torch.rllib.core.stream import _estimate_fragment_bytes, _weights_nbytes
+
+    creator = (lambda: gym.make("CartPole-v1")) if env == "CartPole-v1" else _image_env
+    probe = creator()
+    conv = ((4, 3, 1),) if env == "frames" else None
+    spec = RLModuleSpec.from_gym_env(probe, hidden=(8,), conv_filters=conv)
+    probe.close()
+    runner = SingleAgentEnvRunner(creator, spec, num_envs=2, seed=0, mask_autoreset=False)
+    weights = spec.build(torch.Generator().manual_seed(0)).get_weights()
+    runner.set_weights(weights)
+    frag = runner._collect_fragment(40)  # CartPole's random episodes end well within
+    cols = frag["cols"]
+    frame = np.uint8 if env == "frames" else np.float32
+    want = {"obs": frame, "actions": np.int64, "rewards": np.float32, "terminateds": np.bool_,
+            "truncateds": np.bool_, "action_logp": np.float32, "vf_preds": np.float32,
+            "loss_mask": np.float32}
+    assert {k: v.dtype for k, v in cols.items()} == {k: np.dtype(v) for k, v in want.items()}
+    assert all(isinstance(v, np.ndarray) and v.shape[:2] == (40, 2) for v in cols.values())
+    assert frag["last_values"].dtype == np.float32 and frag["last_values"].shape == (2,)
+    done = cols["terminateds"] | cols["truncateds"]
+    assert done.any() and (cols["loss_mask"][1:][done[:-1]] == 0).all()
+    assert frag["env_steps"] == int(cols["loss_mask"].sum()) and frag["seq"] == 1
+    obs_bytes = int(np.prod(spec.obs_shape or (spec.observation_dim,))) * np.dtype(frame).itemsize
+    assert _estimate_fragment_bytes(creator, spec, 40, 2) == 40 * 2 * (obs_bytes + 64) + (64 << 10)
+    assert _weights_nbytes(weights) == sum(v.nbytes for v in weights.values())
+    runner.stop()
+
+
+def test_inference_server_batches_callers_and_tags_their_generation():
+    """The sebulba server in one process on the CPU: concurrent greedy
+    calls are coalesced, each answer carries the weights' generation and
+    equals the module's own greedy actions and values; exploring calls
+    return their actions' logp."""
+    import asyncio
+
+    from ray_tpu_torch.rllib import InferenceServer, RLModuleSpec
+
+    spec = RLModuleSpec(observation_dim=4, action_dim=3, hidden=(8,))
+    module = spec.build(torch.Generator().manual_seed(2))
+    server = InferenceServer(spec, seed=1, device="cpu")
+    assert server.set_weights(module.get_weights(), 3) == 3
+    obs = [np.random.default_rng(i).standard_normal((5, 4)).astype(np.float32) for i in range(6)]
+
+    async def calls():
+        greedy = await asyncio.gather(*(server.compute_actions(o, False) for o in obs))
+        explore = await server.compute_actions(obs[0], True)
+        return greedy, explore
+
+    greedy, (acts, logp, value, gen) = asyncio.run(calls())
+    for o, (a, lp, v, g) in zip(obs, greedy):
+        with torch.no_grad():
+            want_a, want_v = module.forward_inference(o)
+        assert g == 3 and a.dtype == np.int64
+        np.testing.assert_array_equal(a, want_a.numpy())
+        np.testing.assert_allclose(v, want_v.numpy(), rtol=1e-5, atol=1e-6)  # one batch of 30 rows
+        assert (lp == 0).all()
+    assert gen == 3 and acts.shape == (5,)
+    with torch.no_grad():
+        want_logp = module.forward_train(obs[0], acts)[0].numpy()
+    np.testing.assert_allclose(logp, want_logp, rtol=1e-5)
+
+
+def test_inference_server_refuses_cuda_without_a_card(monkeypatch):
+    from ray_tpu_torch.rllib import InferenceServer, RLModuleSpec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceServer(RLModuleSpec(observation_dim=4, action_dim=2))  # the default device
+
+
+def test_learner_weights_are_always_one_generation():
+    """A thread steps the learner (as IMPALA's LearnerThread does) while
+    this one reads weights for broadcasts: every snapshot equals the
+    weights after some whole step, never half of one (the weight lock)."""
+    import sys
+    import threading
+
+    from ray_tpu_torch.rllib import RLModuleSpec, SampleBatch
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+
+    spec = RLModuleSpec(observation_dim=4, action_dim=2, hidden=(64, 64))
+    learner = PPOLearner(spec, {"device": "cpu", "lr": 1e-2})
+    rng = np.random.default_rng(0)
+    batch = SampleBatch({"obs": rng.standard_normal((32, 4)).astype(np.float32),
+                         "actions": rng.integers(0, 2, 32), "action_logp": np.zeros(32, np.float32),
+                         "advantages": rng.standard_normal(32).astype(np.float32),
+                         "value_targets": rng.standard_normal(32).astype(np.float32)})
+    generations = [learner.get_weights()]
+    learner.after_update = lambda: generations.append(learner.module.get_weights())
+    snapshots, stop = [], threading.Event()
+
+    def steps():
+        for _ in range(60):
+            learner.update_from_batch(batch)
+        stop.set()
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        t = threading.Thread(target=steps, daemon=True)
+        t.start()
+        while not stop.is_set():
+            snapshots.append(learner.get_weights())
+        t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not t.is_alive() and len(generations) == 61 and snapshots
+    keys = sorted(generations[0])
+    whole = {tuple(g[k].tobytes() for k in keys) for g in generations}
+    assert all(tuple(s[k].tobytes() for k in keys) in whole for s in snapshots)
+
+
+def test_appo_target_policy_is_a_copy_synced_every_n_updates():
+    """old_params are tensors of their own: an update moves the module and
+    not the target, and after target_network_update_freq updates the
+    target equals the module again."""
+    from ray_tpu_torch.rllib import RLModuleSpec, SampleBatch
+    from ray_tpu_torch.rllib.algorithms.appo import APPOLearner
+
+    spec = RLModuleSpec(observation_dim=4, action_dim=2, hidden=(8,))
+    learner = APPOLearner(spec, {"device": "cpu", "lr": 1e-2, "target_network_update_freq": 2})
+    rng = np.random.default_rng(1)
+    batch = SampleBatch({"obs": rng.standard_normal((16, 4)).astype(np.float32),
+                         "actions": rng.integers(0, 2, 16),
+                         "action_logp": np.full(16, np.log(0.5), np.float32),
+                         "rewards": np.ones(16, np.float32),
+                         "terminateds": np.zeros(16, bool), "truncateds": np.zeros(16, bool)})
+    start = {k: v.clone() for k, v in learner.old_params.items()}
+    params = dict(learner.module.named_parameters())
+    assert all(learner.old_params[k].data_ptr() != p.data_ptr() for k, p in params.items())
+    learner.update_from_batch(batch)
+    assert all(torch.equal(learner.old_params[k], v) for k, v in start.items())
+    assert any(not torch.equal(learner.old_params[k], p) for k, p in params.items())
+    learner.update_from_batch(batch)
+    assert all(torch.equal(learner.old_params[k], p.detach()) for k, p in params.items())
+
+
+def test_learner_thread_surfaces_an_update_error():
+    """An exception on the learner thread stops it and is raised by the
+    driver's next check_error(), never swallowed."""
+    from ray_tpu_torch.rllib import LearnerThread, SampleBatch
+
+    class Broken:
+        def update_from_batch(self, batch):
+            raise RuntimeError("update failed on the learner thread")
+
+    lt = LearnerThread(Broken(), maxsize=2)
+    lt.start()
+    assert lt.put(SampleBatch({"obs": np.zeros((2, 4))}), timeout=5)
+    lt.join(timeout=30)
+    assert not lt.is_alive()
+    with pytest.raises(RuntimeError, match="learner thread"):
+        lt.check_error()
