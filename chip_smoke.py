@@ -218,7 +218,8 @@ and prints no result line):
                   1, "gpu": 1})) at tests/test_rllib.py's configuration:
                   episode_return_mean past 120 within 30 iterations, the
                   learner on cuda in the trial actor (which maps libcuda)
-                  and the env runners on their CPUs (which do not),
+                  and the env runners on their CPUs (which make no
+                  CUDA context; importing torch maps libcuda there),
                   env-steps/s and the learner's update time an iteration,
                   the trial's checkpoint restoring its weights (without
                   gymnasium (b) is not run and its absence printed);
@@ -248,6 +249,32 @@ and prints no result line):
                   .podracer() on CartPole-v1, the learner on cuda, over
                   ring channels (without gymnasium its absence is
                   printed); no ring directory left after shutdown().
+22. rllib rest  — the rest of RLlib in f32, card vs CPU from the same
+                  weights and noise, each held as 21 (c) to (f) (the first
+                  update's metrics to 1e-4 relative or twice the CPU's own
+                  spread for weights moved 1e-6, each optimizer's first
+                  step by phase 8's rule, every loss to 5e-3 beside that
+                  spread) and then timed on the card: under a cluster of
+                  its own, (c) 1024 seeded transitions written as parquet
+                  through the port's Data and as JSONL through JsonWriter
+                  read back through OfflineData, row for row, and (d)
+                  PPO with multi_agent() of two explicit RLModuleSpecs on
+                  a plain-Python two-agent env, two CPU runner actors (no
+                  CUDA context), a learner group a policy on cuda: one
+                  train() reports both policies, a checkpoint restores
+                  both policies' weights, no port process left after
+                  shutdown(); then (a) DQNLearner at its defaults on
+                  CartPole's shapes, batch 32, 8 updates from a
+                  PrioritizedReplayBuffer (TD errors 1e-4 of max, the
+                  target synced after update 4); (b) SACLearner at (256,
+                  256) on Pendulum's shapes, batch 256, 4 updates (alpha,
+                  the Polyak step, the state's round trip); (c) BC's and
+                  MARWIL's train() with the learner on cuda, CQLLearner's
+                  update in its BC phase and after it, IS and WIS from a
+                  module on the card (1e-5); (e) DreamerV3Learner at its
+                  defaults (deter 128, 8 x 8, 16 x 16 sequences, horizon
+                  10), one update held (its world-model terms 1e-4), 8
+                  timed.
 
 Every phase's seconds are printed ([timing]) as it ends, and all of them
 with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
@@ -1563,6 +1590,26 @@ def _maps_libcuda(pid: int) -> bool:
     that never loaded it holds no CUDA context)."""
     with open(f"/proc/{pid}/maps") as f:
         return "libcuda" in f.read()
+
+
+def _maps_uvm(pid: int) -> bool:
+    """Whether the process maps /dev/nvidia-uvm, as the CUDA driver does
+    once it makes a context: a witness that does not ask torch.  On an H100
+    machine with torch 2.11+cu128, ``import torch`` alone maps libcuda and
+    ``torch.cuda.is_available()`` opens /dev/nvidiactl and the card's node,
+    but only the first allocation maps /dev/nvidia-uvm (a probe of each
+    step).  nvidia-smi's compute apps cannot stand in: in a container it
+    lists pids of another namespace."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "/dev/nvidia-uvm" in f.read()
+
+
+def _cuda_state(actor) -> tuple:
+    """(pid, whether torch holds a CUDA context) of the actor's process, for
+    ``__ray_call__``; ``_maps_uvm`` witnesses the same from outside torch
+    (``import torch`` alone maps libcuda, so the libcuda check of a
+    process that imports torch says nothing)."""
+    return os.getpid(), bool(torch.cuda.is_initialized())
 
 
 def _compute_app_pids() -> set:
@@ -3479,9 +3526,10 @@ def _smoke_ppo_class():
         def step(self):
             out = super().step()
             out["pid"] = os.getpid()
-            out["runner_pids"] = ray_tpu_torch.get(
-                [r.__ray_call__.remote(lambda actor: os.getpid())
-                 for r in self.env_runner_group.runners])
+            states = ray_tpu_torch.get([r.__ray_call__.remote(_cuda_state)
+                                        for r in self.env_runner_group.runners])
+            out["runner_pids"] = [pid for pid, _ in states]
+            out["runner_cuda_context"] = [ctx for _, ctx in states]
             out["learner_device"] = str(self.learner_group._local.device)
             out["learner_update_s"] = self._update_s[-1]
             out["weights_sum"] = _weights_sum(self.learner_group.get_weights())
@@ -3498,7 +3546,7 @@ def _ppo_under_tune(card: str, storage: str) -> dict:
     from ray_tpu_torch import tune
 
     ppo = _smoke_ppo_class()
-    seen = {"iters": [], "maps": {}}
+    seen = {"iters": [], "maps": {}, "uvm": {}}
 
     def stop(r):  # the driver reads each result while the trial's processes live
         seen["iters"].append({k: r.get(k) for k in (
@@ -3506,7 +3554,10 @@ def _ppo_under_tune(card: str, storage: str) -> dict:
             "time_this_iter_s", "learner_update_s", "learner_device", "weights_sum")})
         for pid in [r["pid"], *r["runner_pids"]]:
             seen["maps"].setdefault(pid, _maps_libcuda(pid))
+            seen["uvm"][pid] = seen["uvm"].get(pid, False) or _maps_uvm(pid)
         seen["pids"] = (r["pid"], list(r["runner_pids"]))
+        seen["runner_cuda_context"] = seen.get("runner_cuda_context", False) or any(
+            r["runner_cuda_context"])
         return ((r.get("episode_return_mean") or 0.0) > PPO_TARGET
                 or r["training_iteration"] >= PPO_MAX_ITERS)
 
@@ -3548,15 +3599,20 @@ def _ppo_under_tune(card: str, storage: str) -> dict:
           f"iteration ({PPO_CONFIG['num_epochs']} epochs x "
           f"{PPO_CONFIG['train_batch_size'] // PPO_CONFIG['minibatch_size']} minibatches); "
           f"libcuda mapped: trial {trial_pid} {seen['maps'].get(trial_pid)}, runners "
-          f"{ {p: seen['maps'].get(p) for p in runner_pids} }; restored weights sum "
+          f"{ {p: seen['maps'].get(p) for p in runner_pids} } (import torch maps it); a CUDA "
+          f"context in a runner {seen['runner_cuda_context']}, /dev/nvidia-uvm mapped: trial "
+          f"{seen['uvm'].get(trial_pid)}, runners { {p: seen['uvm'].get(p) for p in runner_pids} }; "
+          f"restored weights sum "
           f"{restored_sum!r} vs the trial's {last['weights_sum']!r}; {wall:.1f} s — {card}",
           flush=True)
     if results.num_errors or not (last["episode_return_mean"] or 0.0) > PPO_TARGET:
         raise AssertionError(f"PPO did not pass {PPO_TARGET}: {res}")
     if not last["learner_device"].startswith("cuda") or not restored_device.startswith("cuda"):
         raise AssertionError(f"the learner did not update on the card: {res}")
-    if not seen["maps"][trial_pid] or any(seen["maps"][p] for p in runner_pids):
-        raise AssertionError(f"libcuda in the trial actor / env runners: {seen['maps']}")
+    if (not (seen["maps"][trial_pid] and seen["uvm"][trial_pid]) or seen["runner_cuda_context"]
+            or any(seen["uvm"][p] for p in runner_pids)):
+        raise AssertionError(f"no CUDA context in the trial actor, or one in an env runner: "
+                             f"{seen}")
     if restored_sum != last["weights_sum"]:
         raise AssertionError(f"the restored weights differ from the trial's: {res}")
     return res
@@ -3574,37 +3630,196 @@ def _cnn_batch(seed: int) -> dict:
     }
 
 
-def _recorded(learner, method: str = "compute_loss") -> dict:
-    """Record, for each Adam step of ``learner``, the loss its ``method``
-    returned (a minibatch's, a fragment's), and the first step's
-    gradients and the parameters after it, until ``rec["stop"]()``."""
-    rec = {"losses": []}
-    loss_of = getattr(learner, method)
-    named = list(learner.module.named_parameters())
+def _opt_hooks(optimizers: dict):
+    """Record each optimizer's first step (its gradients before it, its
+    parameters after it) and count its steps, by ``{key: (optimizer,
+    [(name, param)])}``; returns the record and a function that removes
+    the hooks."""
+    rec, hooks = {}, []
+    for key, (opt, named) in optimizers.items():
+        slot = rec.setdefault(key, {"steps": 0})
 
-    def compute_loss(*args):
+        def pre(o, a, kw, slot=slot, named=named):
+            slot.setdefault("grads", {n: p.grad.detach().cpu().clone()
+                                      for n, p in named if p.grad is not None})
+
+        def post(o, a, kw, slot=slot, named=named):
+            slot.setdefault("params", {n: p.detach().cpu().clone() for n, p in named})
+            slot["steps"] += 1
+
+        hooks += [opt.register_step_pre_hook(pre), opt.register_step_post_hook(post)]
+    return rec, lambda: [h.remove() for h in hooks]
+
+
+def _loss_hook(obj, method: str):
+    """Record the loss of each call of ``obj.method`` (a minibatch's, a
+    fragment's: each is one Adam step's) and the first call's inputs;
+    returns the record and a function that restores the method."""
+    rec = {"losses": []}
+    loss_of = getattr(obj, method)
+
+    def recorded(*args):
         out = loss_of(*args)
-        rec.setdefault("args", args)  # the first step's inputs
+        rec.setdefault("args", args)
         rec["losses"].append(out[0].detach())
         return out
 
-    def before_step(optimizer, args, kwargs):
-        rec.setdefault("grads", {n: p.grad.detach().cpu().clone() for n, p in named})
+    setattr(obj, method, recorded)
+    return rec, lambda: delattr(obj, method)  # the class's method again
 
-    def after_step(optimizer, args, kwargs):
-        rec.setdefault("params", {n: p.detach().cpu().clone() for n, p in named})
 
-    setattr(learner, method, compute_loss)
-    hooks = [learner.optimizer.register_step_pre_hook(before_step),
-             learner.optimizer.register_step_post_hook(after_step)]
+def _each(run):
+    """``run_all`` for learners that each take their updates alone."""
+    return lambda learners: {key: run(learner) for key, learner in learners.items()}
 
-    def stop():
-        for h in hooks:
-            h.remove()
-        delattr(learner, method)  # the class's method again
 
-    rec["stop"] = stop
-    return rec
+def _learner_optimizers(learner) -> dict:
+    return {"module": (learner.optimizer, _named(learner.module))}
+
+
+def _named(module) -> list:
+    return list(module.named_parameters())
+
+
+def _fmt(d: dict) -> dict:
+    return {k: f"{v:.1e}" for k, v in d.items()}
+
+
+def _hold_updates(tag: str, card: str, make, optimizers_of, run_all, lrs: dict,
+                  first_tol=lambda metric: 1e-4, loss_of=None, f64_grads=None) -> dict:
+    """The same updates on the card, on the CPU and on the CPU from weights
+    moved by 1e-6 relative (the CPU's own spread).  ``make(device)``
+    builds a learner (or an algorithm that holds one),
+    ``optimizers_of(it)`` names its optimizers and their parameters,
+    ``run_all(them)`` runs every one's updates and returns each one's
+    metrics an update.  Where an update takes many Adam steps,
+    ``loss_of(it)`` gives the object and method whose loss each step
+    descends.  Held:
+
+    - the first update's metrics to ``first_tol(metric)`` relative, or
+      twice the CPU's own spread where that is wider (an update of many
+      steps reports its last minibatch's metrics, which drift as its
+      losses do: PPO's mean_kl and grad_norm by 7.6e-2 and 4.0e-2 on the
+      CPU alone for weights moved 1e-6);
+    - each optimizer's first step by phase 8's rule: its loss to 1e-4
+      relative (where ``loss_of`` names it), the gradients to 1e-3 of
+      each tensor's max (``f64_grads``' fallback is explained below), each
+      parameter after it within 1e-2 lr where its gradient is at least
+      1e-2 of its tensor's largest, else within 2 lr and two f32 spacings
+      of the largest parameter (p + lr and p - lr, rounded);
+    - every step's loss (``loss_of``'s, else each update's loss metrics)
+      to CNN_LOSS_TOL, the CPU's own spread printed beside it;
+    - every parameter at the end within 2 lr a step of its optimizer;
+    - all finite.
+
+    Returns the numbers and, under "learners", what ``make`` built."""
+    learners = {key: make(key.rstrip("+")) for key in ("cuda", "cpu", "cpu+")}
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for _, named in optimizers_of(learners["cpu+"]).values():
+            for _, p in named:
+                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
+        if hasattr(learners["cpu+"], "old_params"):  # APPO's target policy
+            learners["cpu+"].old_params = learners["cpu+"]._copy_params()
+    recs = {key: _opt_hooks(optimizers_of(learner)) for key, learner in learners.items()}
+    losses = {key: _loss_hook(*loss_of(learner)) for key, learner in learners.items()} \
+        if loss_of else {}
+    t = time.perf_counter()
+    metrics = run_all(learners)
+    held_s = time.perf_counter() - t
+    for _, stop in [*recs.values(), *losses.values()]:
+        stop()
+    first = {k: _rel_err(v, metrics["cpu"][0][k]) for k, v in metrics["cuda"][0].items()}
+    first_spread = {k: _rel_err(metrics["cpu+"][0][k], v) for k, v in metrics["cpu"][0].items()}
+    if loss_of:
+        step_losses = {key: [x.item() for x in rec["losses"]] for key, (rec, _) in losses.items()}
+
+        def loss_rel(key):
+            return [abs(a - b) / abs(b) for a, b in zip(step_losses[key], step_losses["cpu"])]
+    else:
+        names = [k for k in metrics["cpu"][0] if "loss" in k]
+        step_losses = {key: [m[k] for m in ms for k in names] for key, ms in metrics.items()}
+
+        def loss_rel(key):
+            return [_rel_err(m[k], c[k]) for m, c in zip(metrics[key], metrics["cpu"])
+                    for k in names]
+    rels, spread = loss_rel("cuda"), max(loss_rel("cpu+"))
+    on_card, on_cpu = recs["cuda"][0], recs["cpu"][0]
+    grad_errs, f64, step1_sure, step1_all, ulps, steps = {}, {}, {}, {}, {}, {}
+    for key, slot in on_cpu.items():
+        card_slot = on_card[key]
+        grad_errs[key] = {n: float((card_slot["grads"][n] - gr).abs().max()
+                                   / gr.abs().max().clamp_min(1e-30))
+                          for n, gr in slot["grads"].items()}
+        sure = {n: gr.abs() >= 1e-2 * gr.abs().max() for n, gr in slot["grads"].items()}
+        step1_sure[key] = max(float((card_slot["params"][n] - p).abs()[sure[n]].max())
+                              if n in sure and sure[n].any() else 0.0
+                              for n, p in slot["params"].items())
+        step1_all[key] = max(float((card_slot["params"][n] - p).abs().max())
+                             for n, p in slot["params"].items())
+        ulps[key] = 2 * max(float(np.spacing(np.float32(p.abs().max())))
+                            for p in slot["params"].values())
+        steps[key] = slot["steps"]
+    # A tensor whose gradient sums terms that cancel heavily can leave an
+    # f32 sum farther than 1e-3 of its max from the exact value (APPO's
+    # first step on the pi torso's convolutions: the CPU's f32 1.4e-3 to
+    # 7.6e-3 off its float64 gradient, the card's 1e-6 to 1.6e-3).  Where
+    # ``f64_grads(first step's inputs)`` is given and card and CPU part by
+    # more than 1e-3, the card is held to the float64 gradient of the same
+    # step instead: within 1e-3 of its max, or no farther than twice the
+    # CPU's own f32.
+    if f64_grads and any(e > 1e-3 for errs in grad_errs.values() for e in errs.values()):
+        g64 = f64_grads(losses["cuda"][0]["args"])
+        for key, errs in grad_errs.items():
+            for n in (n for n, e in errs.items() if e > 1e-3 and n in g64):
+                mx = g64[n].abs().max()
+                f64[n] = {"card": float((on_card[key]["grads"][n].double() - g64[n]).abs().max()
+                                        / mx),
+                          "cpu_f32": float((on_cpu[key]["grads"][n].double() - g64[n]).abs().max()
+                                           / mx)}
+    grads_held = all(e <= 1e-3 or (n in f64 and f64[n]["card"] <= max(1e-3, 2 * f64[n]["cpu_f32"]))
+                     for errs in grad_errs.values() for n, e in errs.items())
+    grad_err = {key: max(errs.values()) for key, errs in grad_errs.items()}
+    final = {key: {k: dict(named) for k, (_, named) in optimizers_of(learner).items()}
+             for key, learner in learners.items()}
+
+    def param_diff(key):
+        return {k: max(float((final[key][k][n].detach().cpu() - p.detach()).abs().max())
+                       for n, p in named.items()) for k, named in final["cpu"].items()}
+
+    param_err, param_spread = param_diff("cuda"), param_diff("cpu+")
+    out = {"updates": len(metrics["cpu"]), "adam_steps": steps, "losses_cuda": step_losses["cuda"],
+           "losses_cpu": step_losses["cpu"], "first_metrics_rel_err": first,
+           "cpu_spread_first_metrics_rel": first_spread, "first_grad_err_over_max": grad_err,
+           "first_grads_vs_f64": f64, "first_step_param_err_sure": step1_sure,
+           "first_step_param_err": step1_all, "loss_rel_err": max(rels),
+           "cpu_spread_loss_rel": spread, "param_err": param_err,
+           "cpu_spread_param": param_spread, "lrs": lrs, "held_s": held_s,
+           "metrics_cuda": metrics["cuda"][-1], "metrics_cpu": metrics["cpu"][-1]}
+    first_loss = f"step 1 loss rel {rels[0]:.2e} (tol 1e-4); " if loss_of else ""
+    f64_note = "".join(f"; {n} {f['card']:.2e} of max from its f64 gradient (tol 1e-3 or "
+                       f"twice the CPU's f32 {f['cpu_f32']:.2e})" for n, f in f64.items())
+    print(f"{tag} card vs CPU, f32, {out['updates']} update(s), Adam steps {steps}: {first_loss}"
+          f"gradients of the first step {_fmt(grad_err)} of max (tol 1e-3{f64_note}); params "
+          f"after it {_fmt(step1_sure)} where |g| >= 1e-2 max|g| (tol 1e-2 lr, lr {lrs}), "
+          f"{_fmt(step1_all)} overall (tol 2 lr + {_fmt(ulps)}); the first update's metrics "
+          f"{_fmt(first)} (tol {', '.join(sorted({f'{first_tol(k):g}' for k in first}))} or twice "
+          f"the CPU's own for weights moved 1e-6: {_fmt(first_spread)}); every loss max rel "
+          f"{max(rels):.2e} (tol {CNN_LOSS_TOL:g}; the CPU's own {spread:.2e}); params at the "
+          f"end {_fmt(param_err)} (tol 2 lr a step; the CPU's own {_fmt(param_spread)}) — {card}",
+          flush=True)
+    finite = all(math.isfinite(x) for x in step_losses["cuda"]) and all(
+        math.isfinite(v) for m in metrics["cuda"] for v in m.values())
+    ok = (all(v <= max(first_tol(k), 2 * first_spread[k]) for k, v in first.items())
+          and (not loss_of or rels[0] <= 1e-4) and grads_held
+          and all(step1_sure[k] <= 1e-2 * lrs[k] for k in step1_sure)
+          and all(step1_all[k] <= 2 * lrs[k] + ulps[k] for k in step1_all)
+          and max(rels) <= CNN_LOSS_TOL
+          and all(param_err[k] <= 2 * lrs[k] * steps[k] + ulps[k] for k in param_err)
+          and finite)
+    if not ok:
+        raise AssertionError(f"{tag}: the card's updates disagree with the CPU's: {out}")
+    return {**out, "learners": learners}
 
 
 # The whole update's minibatch losses, card vs CPU.  Adam's steps amplify
@@ -3621,87 +3836,44 @@ def _cnn_learner(card: str) -> dict:
     """(c) PPO's learner with the Nature-CNN torso at Atari's frame: one
     update_from_batch_epochs (CNN_EPOCHS x CNN_ROWS // CNN_MB Adam steps)
     in f32 on the card and on the CPU from the same seed (the same
-    weights and permutations).  Its first Adam step by phase 8's rule:
-    the loss (equal weights) to 1e-4 relative, the gradients to 1e-3 of
-    each tensor's max, each parameter after the step within 1e-2 lr where
-    its gradient is at least 1e-2 of its tensor's largest and within 2 lr
-    elsewhere; over the whole update, every minibatch's loss to
-    CNN_LOSS_TOL and every parameter within Adam's 2 lr a step, beside the
-    CPU's own spread for weights moved by 1e-6.  Then the card's update,
-    timed."""
-    from ray_tpu_torch.rllib import RLModuleSpec, SampleBatch
+    weights and permutations), held by ``_hold_updates`` (the last
+    minibatch's metrics to CNN_LOSS_TOL or twice the CPU's spread).  Then
+    the card's update, timed."""
+    from ray_tpu_torch.rllib import SampleBatch
     from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
 
-    spec = RLModuleSpec(observation_dim=int(np.prod(CNN_FRAME)), action_dim=CNN_ACTIONS,
-                        hidden=(512,), obs_shape=CNN_FRAME, conv_filters=CNN_FILTERS)
     conf = {"lr": CNN_LR, "clip_param": 0.2, "vf_clip_param": 10.0, "vf_loss_coeff": 0.5,
             "entropy_coeff": 0.01, "seed": 0}
     batch = SampleBatch(_cnn_batch(21))
-    learners = {key: PPOLearner(spec, {**conf, "device": key.rstrip("+")})
-                for key in ("cuda", "cpu", "cpu+")}
-    with torch.no_grad():  # the CPU's own spread: its weights moved by 1e-6 relative
-        g = torch.Generator().manual_seed(1)
-        for p in learners["cpu+"].module.parameters():
-            p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
-    recs = {key: _recorded(learner) for key, learner in learners.items()}
-    secs = {}
-    for key, learner in learners.items():
-        t = time.perf_counter()
-        learner.update_from_batch_epochs(batch, CNN_MB, CNN_EPOCHS)
-        secs[key] = time.perf_counter() - t
-    for r in recs.values():
-        r["stop"]()
-    steps = CNN_EPOCHS * (CNN_ROWS // CNN_MB)
-    losses = {key: [x.item() for x in r["losses"]] for key, r in recs.items()}
-
-    def loss_rel(key):
-        return [abs(a - b) / abs(b) for a, b in zip(losses[key], losses["cpu"])]
-
-    rels, spread = loss_rel("cuda"), max(loss_rel("cpu+"))
-    on_card, on_cpu = recs["cuda"], recs["cpu"]
-    grad_err = max(float((on_card["grads"][n] - g).abs().max() / g.abs().max())
-                   for n, g in on_cpu["grads"].items())
-    sure = {n: g.abs() >= 1e-2 * g.abs().max() for n, g in on_cpu["grads"].items()}
-    step1_sure = max(float((on_card["params"][n] - p).abs()[sure[n]].max())
-                     for n, p in on_cpu["params"].items())
-    step1_all = max(float((on_card["params"][n] - p).abs().max())
-                    for n, p in on_cpu["params"].items())
-    final = {k: {n: torch.from_numpy(v) for n, v in learner.get_weights().items()}
-             for k, learner in learners.items()}
-    param_err = max(float((final["cuda"][n] - p).abs().max()) for n, p in final["cpu"].items())
-    param_spread = max(float((final["cpu+"][n] - p).abs().max()) for n, p in final["cpu"].items())
+    res = _hold_cnn(f"[tune+rllib] (c) PPO learner, Nature-CNN {CNN_FILTERS} + (512,) on "
+                    f"{CNN_FRAME} uint8 frames, {CNN_ROWS} rows, minibatch {CNN_MB}, "
+                    f"{CNN_EPOCHS} epochs,", card, PPOLearner, conf, "compute_loss",
+                    lambda lrn: [lrn.update_from_batch_epochs(batch, CNN_MB, CNN_EPOCHS)],
+                    CNN_LOSS_TOL, f64=False)
+    learner = res.pop("learners")["cuda"]
+    res["n_params"] = sum(p.numel() for p in learner.module.parameters())
     # the update on the card, timed: three more (the first held the warm-up)
-    card_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        learners["cuda"].update_from_batch_epochs(batch, CNN_MB, CNN_EPOCHS)
-        torch.cuda.synchronize()
-        card_ms.append((time.perf_counter() - t) * 1e3)
-    res = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
-           "first_loss_rel_err": rels[0], "first_grad_err_over_max": grad_err,
-           "first_step_param_err_sure": step1_sure, "first_step_param_err": step1_all,
-           "loss_rel_err": max(rels), "cpu_spread_loss_rel": spread, "param_err": param_err,
-           "cpu_spread_param": param_spread, "adam_steps": steps, "lr": CNN_LR,
-           "update_ms": statistics.median(card_ms), "update_ms_all": card_ms,
-           "first_update_s": secs,
-           "n_params": sum(p.numel() for p in learners["cpu"].module.parameters())}
-    print(f"[tune+rllib] (c) PPO learner, Nature-CNN {CNN_FILTERS} + (512,) on {CNN_FRAME} uint8 "
-          f"frames ({res['n_params']} parameters), {CNN_ROWS} rows, minibatch {CNN_MB}, "
-          f"{CNN_EPOCHS} epochs ({steps} Adam steps), f32 card vs CPU: step 1 loss rel "
-          f"{rels[0]:.2e} (tol 1e-4), gradients {grad_err:.2e} of max (tol 1e-3), params "
-          f"{step1_sure:.2e} where |g| >= 1e-2 max|g| (tol {1e-2 * CNN_LR:g}), {step1_all:.2e} "
-          f"overall (tol {2 * CNN_LR:g}); the whole update: every minibatch's loss max rel "
-          f"{max(rels):.2e} (tol {CNN_LOSS_TOL:g}), params {param_err:.2e} (tol "
-          f"{2 * CNN_LR * steps:g}); the CPU's own for weights moved 1e-6: {spread:.2e} and "
-          f"{param_spread:.2e}; update on the card {res['update_ms']:.2f} ms (runs "
-          f"{[round(x, 2) for x in card_ms]}; the first, with warm-up, {secs['cuda']:.2f} s; the "
-          f"CPU's {secs['cpu']:.2f} s) — {card}", flush=True)
-    if not (rels[0] <= 1e-4 and grad_err <= 1e-3 and step1_sure <= 1e-2 * CNN_LR
-            and step1_all <= 2 * CNN_LR and max(rels) <= CNN_LOSS_TOL
-            and param_err <= 2 * CNN_LR * steps and all(math.isfinite(x) for x in losses["cuda"])):
-        raise AssertionError(f"the CNN learner's update on the card disagrees: {res}")
+    res["update_ms_all"] = _time_card(
+        lambda: learner.update_from_batch_epochs(batch, CNN_MB, CNN_EPOCHS), reps=3)
+    res["update_ms"] = statistics.median(res["update_ms_all"])
+    print(f"[tune+rllib] (c) PPO learner's update ({res['n_params']} parameters, "
+          f"{res['adam_steps']['module']} Adam steps) on the card: {res['update_ms']:.2f} ms "
+          f"(runs {[round(x, 2) for x in res['update_ms_all']]}; the three learners held took "
+          f"{res['held_s']:.2f} s with the card's warm-up) — {card}", flush=True)
     return res
+
+
+def _hold_cnn(tag: str, card: str, learner_cls, conf: dict, method: str, run, first_tol: float,
+              f64: bool = True) -> dict:
+    """``_hold_updates`` for a Nature-CNN learner of ``learner_cls`` whose
+    Adam steps descend ``method``'s loss, ``run(learner)`` giving each
+    update's metrics; ``f64``: fall back to the first step's float64
+    gradients where card and CPU part."""
+    return _hold_updates(tag, card, lambda d: learner_cls(_cnn_spec(), {**conf, "device": d}),
+                         _learner_optimizers, _each(run), {"module": conf["lr"]},
+                         lambda metric: first_tol, loss_of=lambda lrn: (lrn, method),
+                         f64_grads=functools.partial(_f64_grads, learner_cls, conf, method)
+                         if f64 else None)
 
 
 # ----------------------------------------------------------------------
@@ -3771,103 +3943,6 @@ def _rel_err(got, want, floor: float = 1e-3) -> float:
     return abs(got - want) / max(abs(want), floor)
 
 
-def _hold_learners(tag: str, card: str, learner_cls, conf: dict, method: str, run,
-                   first_metrics_tol: float) -> dict:
-    """The same update on the card, on the CPU and on the CPU from weights
-    moved by 1e-6 relative (the CPU's own spread): ``run(learner)``
-    returns each update's metrics.  Held: the first Adam step by phase
-    8's rule (the loss to 1e-4 relative, the gradients to 1e-3 of each
-    tensor's max, each parameter after it within 1e-2 lr where its
-    gradient is at least 1e-2 of its tensor's largest, else 2 lr); the
-    first update's metrics to ``first_metrics_tol`` relative, or twice the
-    CPU's own spread where that is wider (an update of many Adam steps
-    reports its last minibatch's metrics, which drift as its losses do:
-    PPO's mean_kl and grad_norm by 7.6e-2 and 4.0e-2 on the CPU alone
-    for weights moved 1e-6); every Adam
-    step's loss to CNN_LOSS_TOL; every parameter at the end within 2 lr a
-    step; all finite (the gradients' float64 fallback is explained
-    below).  Returns the card's learner beside the numbers."""
-    spec, lr = _cnn_spec(), conf["lr"]
-    learners = {key: learner_cls(spec, {**conf, "device": key.rstrip("+")})
-                for key in ("cuda", "cpu", "cpu+")}
-    with torch.no_grad():
-        g = torch.Generator().manual_seed(1)
-        for p in learners["cpu+"].module.parameters():
-            p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
-        if hasattr(learners["cpu+"], "old_params"):
-            learners["cpu+"].old_params = learners["cpu+"]._copy_params()
-    recs = {key: _recorded(learner, method) for key, learner in learners.items()}
-    metrics, secs = {}, {}
-    for key, learner in learners.items():
-        t = time.perf_counter()
-        metrics[key] = run(learner)
-        secs[key] = time.perf_counter() - t
-    for r in recs.values():
-        r["stop"]()
-    losses = {key: [x.item() for x in r["losses"]] for key, r in recs.items()}
-    rels = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
-    spread = max(abs(a - b) / abs(b) for a, b in zip(losses["cpu+"], losses["cpu"]))
-    on_card, on_cpu = recs["cuda"], recs["cpu"]
-    errs = {n: float((on_card["grads"][n] - g).abs().max() / g.abs().max())
-            for n, g in on_cpu["grads"].items()}
-    grad_err = max(errs.values())
-    # A tensor whose gradient sums terms that cancel heavily can leave an
-    # f32 sum farther than 1e-3 of its max from the exact value (APPO's
-    # first step on the pi torso's convolutions: the CPU's f32 1.4e-3 to
-    # 7.6e-3 off its float64 gradient, the card's 1e-6 to 1.6e-3).  Where
-    # card and CPU part by more than 1e-3, the card is held to the float64
-    # gradient of the same step instead: within 1e-3 of its max, or no
-    # farther than twice the CPU's own f32.
-    f64 = {}
-    if grad_err > 1e-3:
-        g64 = _f64_grads(learner_cls, conf, method, on_card["args"])
-        for n in (n for n, e in errs.items() if e > 1e-3):
-            mx = g64[n].abs().max()
-            f64[n] = {"card": float((on_card["grads"][n].double() - g64[n]).abs().max() / mx),
-                      "cpu_f32": float((on_cpu["grads"][n].double() - g64[n]).abs().max() / mx)}
-    grads_held = all(f["card"] <= max(1e-3, 2 * f["cpu_f32"]) for f in f64.values())
-    sure = {n: g.abs() >= 1e-2 * g.abs().max() for n, g in on_cpu["grads"].items()}
-    step1_sure = max(float((on_card["params"][n] - p).abs()[sure[n]].max())
-                     for n, p in on_cpu["params"].items())
-    step1_all = max(float((on_card["params"][n] - p).abs().max())
-                    for n, p in on_cpu["params"].items())
-    # two f32 spacings of the largest parameter: p + lr and p - lr, rounded
-    ulps = 2 * max(float(np.spacing(np.float32(p.abs().max()))) for p in on_cpu["params"].values())
-    first = {k: _rel_err(v, metrics["cpu"][0][k]) for k, v in metrics["cuda"][0].items()}
-    first_spread = {k: _rel_err(metrics["cpu+"][0][k], v) for k, v in metrics["cpu"][0].items()}
-    steps = len(losses["cpu"])
-    final = {k: learner.get_weights() for k, learner in learners.items()}
-    param_err = max(float(np.abs(final["cuda"][n] - p).max()) for n, p in final["cpu"].items())
-    out = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "adam_steps": steps,
-           "first_loss_rel_err": rels[0], "first_grad_err_over_max": grad_err,
-           "first_grads_vs_f64": f64,
-           "first_step_param_err_sure": step1_sure, "first_step_param_err": step1_all,
-           "first_metrics_rel_err": first, "cpu_spread_first_metrics_rel": first_spread,
-           "loss_rel_err": max(rels),
-           "cpu_spread_loss_rel": spread, "param_err": param_err, "lr": lr,
-           "held_s": secs, "metrics_cuda": metrics["cuda"][-1]}
-    f64_note = "".join(f"; {n} {f['card']:.2e} of max from its f64 gradient (tol 1e-3 or "
-                       f"twice the CPU's f32 {f['cpu_f32']:.2e})" for n, f in f64.items())
-    print(f"[tune+rllib] {tag} card vs CPU, f32, {steps} Adam steps: step 1 loss rel "
-          f"{rels[0]:.2e} (tol 1e-4), gradients {grad_err:.2e} of max (tol 1e-3{f64_note}), "
-          f"params {step1_sure:.2e} where |g| >= 1e-2 max|g| (tol {1e-2 * lr:g}), "
-          f"{step1_all:.2e} overall (tol {2 * lr:g} + {ulps:.1e}); the first update's metrics "
-          f"{ {k: f'{v:.1e}' for k, v in first.items()} } (tol {first_metrics_tol:g} or twice "
-          f"the CPU's own for weights moved 1e-6: "
-          f"{ {k: f'{v:.1e}' for k, v in first_spread.items()} }); every "
-          f"loss max rel {max(rels):.2e} (tol {CNN_LOSS_TOL:g}; the CPU's own for weights "
-          f"moved 1e-6: {spread:.2e}); params at the end {param_err:.2e} (tol "
-          f"{2 * lr * steps:g}) — {card}", flush=True)
-    finite = all(math.isfinite(x) for x in losses["cuda"]) and all(
-        math.isfinite(v) for m in metrics["cuda"] for v in m.values())
-    if not (rels[0] <= 1e-4 and grads_held and step1_sure <= 1e-2 * lr
-            and step1_all <= 2 * lr + ulps
-            and all(v <= max(first_metrics_tol, 2 * first_spread[k]) for k, v in first.items())
-            and max(rels) <= CNN_LOSS_TOL and param_err <= 2 * lr * steps and finite):
-        raise AssertionError(f"{tag}: the card's update disagrees with the CPU's: {out}")
-    return {**out, "learner": learners["cuda"]}
-
-
 def _f64_grads(learner_cls, conf: dict, method: str, args) -> dict:
     """The first Adam step's gradients in float64 on the CPU: the same
     initial weights (the learners' seed draws them in float32), the card
@@ -3901,20 +3976,20 @@ def _time_card(update, reps: int = FRAG_TIMED) -> list:
 def _impala_fragments(card: str) -> dict:
     """(d) IMPALA's update_from_fragments, one [50, 8] Nature-CNN fragment
     (400 rows) an update, FRAG_UPDATES updates from the same weights on
-    the card and on the CPU, held by ``_hold_learners``; then timed."""
+    the card and on the CPU, held by ``_hold_updates``; then timed."""
     from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
 
     frags = [_cnn_fragment(100 + i) for i in range(FRAG_UPDATES)]
-    res = _hold_learners("(d) IMPALA update_from_fragments, Nature-CNN, fragments [50, 8],",
-                         card, IMPALALearner, IMPALA_CONF, "fragment_loss",
-                         lambda lrn: [lrn.update_from_fragments([f]) for f in frags], 1e-4)
-    learner = res.pop("learner")
+    res = _hold_cnn("[tune+rllib] (d) IMPALA update_from_fragments, Nature-CNN, fragments "
+                    "[50, 8],", card, IMPALALearner, IMPALA_CONF, "fragment_loss",
+                    lambda lrn: [lrn.update_from_fragments([f]) for f in frags], 1e-4)
+    learner = res.pop("learners")["cuda"]
     res["update_ms_all"] = _time_card(lambda: learner.update_from_fragments([frags[0]]))
     res["update_ms"] = statistics.median(res["update_ms_all"])
     print(f"[tune+rllib] (d) IMPALA's update of one [50, 8] fragment on the card: "
           f"{res['update_ms']:.2f} ms (runs {[round(x, 2) for x in res['update_ms_all']]}; the "
-          f"held {FRAG_UPDATES} took {res['held_s']['cuda']:.2f} s with the first's warm-up, "
-          f"the CPU's {res['held_s']['cpu']:.2f} s); metrics {res['metrics_cuda']} — {card}",
+          f"held {FRAG_UPDATES} on the three learners took {res['held_s']:.2f} s with the "
+          f"card's warm-up); metrics {res['metrics_cuda']} — {card}",
           flush=True)
     return res
 
@@ -3923,7 +3998,7 @@ def _appo_updates(card: str) -> dict:
     """(e) APPO's own loss (the clipped surrogate against its target
     policy) through update_from_batch, as its learner thread takes each
     runner batch: APPO_UPDATES fragments flattened env by env, held by
-    ``_hold_learners``; the target re-synced after every second update
+    ``_hold_updates``; the target re-synced after every second update
     (checked on the card's learner); then timed.  The streaming path's
     APPO update is IMPALA's fragment loss, as in the reference, which (d)
     holds."""
@@ -3942,9 +4017,9 @@ def _appo_updates(card: str) -> dict:
                 for n, p in learner.module.named_parameters()))
         return out
 
-    res = _hold_learners("(e) APPO update_from_batch, Nature-CNN, 400 rows a batch,", card,
-                         APPOLearner, APPO_CONF, "compute_loss", run, 1e-4)
-    learner = res.pop("learner")
+    res = _hold_cnn("[tune+rllib] (e) APPO update_from_batch, Nature-CNN, 400 rows a batch,",
+                    card, APPOLearner, APPO_CONF, "compute_loss", run, 1e-4)
+    learner = res.pop("learners")["cuda"]
     synced = res["target_synced_after_update"] = synced[id(learner)]
     want = [(i + 1) % APPO_CONF["target_network_update_freq"] == 0 for i in range(APPO_UPDATES)]
     res["update_ms_all"] = _time_card(lambda: learner.update_from_batch(SampleBatch(batches[0])))
@@ -3962,7 +4037,7 @@ def _ppo_fragments(card: str) -> dict:
     time-major columns, masked standardisation) on the card against the
     CPU, advantages and value targets to 1e-5 of their largest; then
     update_from_fragments of PPO_K fragments (minibatch PPO_MB, PPO_EPOCHS
-    epochs) held by ``_hold_learners`` (the learners' generators draw the
+    epochs) held by ``_hold_updates`` (the learners' generators draw the
     same permutations), then timed."""
     from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
     from ray_tpu_torch.rllib.core.learner import Learner
@@ -3986,18 +4061,18 @@ def _ppo_fragments(card: str) -> dict:
           f"max error over max {gae_err} (tol 1e-5) — {card}", flush=True)
     if max(gae_err.values()) > 1e-5:
         raise AssertionError(f"(f) prepare_fragments on the card disagrees: {gae_err}")
-    res = _hold_learners(f"(f) PPO update_from_fragments, Nature-CNN, {PPO_K} fragments [50, 8], "
-                         f"minibatch {PPO_MB}, {PPO_EPOCHS} epochs,", card, PPOLearner,
-                         PPO_FRAG_CONF, "compute_loss",
-                         lambda lrn: [lrn.update_from_fragments(frags, PPO_MB, PPO_EPOCHS)],
-                         CNN_LOSS_TOL)
-    learner = res.pop("learner")
+    res = _hold_cnn(f"[tune+rllib] (f) PPO update_from_fragments, Nature-CNN, {PPO_K} fragments "
+                    f"[50, 8], minibatch {PPO_MB}, {PPO_EPOCHS} epochs,", card, PPOLearner,
+                    PPO_FRAG_CONF, "compute_loss",
+                    lambda lrn: [lrn.update_from_fragments(frags, PPO_MB, PPO_EPOCHS)],
+                    CNN_LOSS_TOL)
+    learner = res.pop("learners")["cuda"]
     res["gae_err_over_max"] = gae_err
     res["update_ms_all"] = _time_card(
         lambda: learner.update_from_fragments(frags, PPO_MB, PPO_EPOCHS), reps=3)
     res["update_ms"] = statistics.median(res["update_ms_all"])
     print(f"[tune+rllib] (f) PPO's update of {PPO_K} fragments ({PPO_K * FRAG_T * FRAG_N} rows, "
-          f"{res['adam_steps']} Adam steps) on the card: {res['update_ms']:.2f} ms (runs "
+          f"{res['adam_steps']['module']} Adam steps) on the card: {res['update_ms']:.2f} ms (runs "
           f"{[round(x, 2) for x in res['update_ms_all']]}) — {card}", flush=True)
     return res
 
@@ -4139,12 +4214,12 @@ def _podracer_loop(card: str) -> dict:
     return res
 
 
-def _part(parts: dict, name: str, fn, *args):
+def _part(parts: dict, name: str, fn, *args, tag: str = "tune and rllib"):
     """fn(*args), its seconds kept in ``parts`` and printed as a [timing] line."""
     t = time.perf_counter()
     out = fn(*args)
     parts[name] = time.perf_counter() - t
-    print(f"[timing] tune and rllib {name}: {parts[name]:.1f} s", flush=True)
+    print(f"[timing] {tag} {name}: {parts[name]:.1f} s", flush=True)
     return out
 
 
@@ -4207,6 +4282,474 @@ def phase_tune_rllib(card: str, raw: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# Phase 22: the rest of RLlib — DQN, SAC, the offline algorithms (BC,
+# MARWIL, CQL, OfflineData, the estimators), multi-agent PPO and DreamerV3,
+# each update card vs CPU from the same weights and noise
+# ----------------------------------------------------------------------
+RL_DQN_UPDATES, RL_DQN_SYNC_AFTER, RL_DQN_B = 8, 4, 32  # DQNConfig's batch
+RL_SAC_UPDATES, RL_SAC_B = 4, 256  # SACConfig's train_batch_size
+RL_OFFLINE_ROWS, RL_OFFLINE_EP = 1024, 32
+RL_DREAMER_TIMED = 8
+
+
+def _rl_transitions(n: int, obs_dim: int, seed: int, discrete: bool, act_dim: int = 1,
+                    act_high: float = 2.0) -> dict:
+    """Seeded transitions: obs, actions, rewards, next_obs, terminateds."""
+    rng = np.random.default_rng(seed)
+    acts = (rng.integers(0, act_dim, n) if discrete
+            else rng.uniform(-act_high, act_high, (n, act_dim)).astype(np.float32))
+    return {"obs": rng.standard_normal((n, obs_dim)).astype(np.float32), "actions": acts,
+            "rewards": rng.standard_normal(n).astype(np.float32),
+            "next_obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+            "terminateds": rng.random(n) < 0.05}
+
+
+def _rl_dqn(card: str) -> dict:
+    """(a) DQNLearner at the reference's defaults (hidden (64, 64), dueling
+    heads, lr 5e-4) on CartPole's shapes, batch 32: 8 updates from one
+    PrioritizedReplayBuffer of seeded transitions, each replay batch fed
+    to the card's and the CPU's learners alike, its priorities updated
+    from the CPU's TD errors (the card's held to them to 1e-4 of their
+    max), the target synced after update 4."""
+    from ray_tpu_torch.rllib import PrioritizedReplayBuffer, RLModuleSpec, SampleBatch
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig, DQNLearner
+
+    dcfg = DQNConfig()
+    spec = RLModuleSpec(observation_dim=4, action_dim=2, hidden=(64, 64))
+    conf = {"lr": dcfg.lr, "gamma": dcfg.gamma, "grad_clip": None, "seed": 0}
+    buf = PrioritizedReplayBuffer(capacity=4096, seed=0)
+    buf.add(SampleBatch(_rl_transitions(2048, 4, 3, discrete=True, act_dim=2)))
+    td_err = []
+
+    def run_all(learners):
+        out = {k: [] for k in learners}
+        for i in range(RL_DQN_UPDATES):
+            replay = buf.sample(RL_DQN_B)
+            tds = {}
+            for key, learner in learners.items():
+                out[key].append(learner.update_from_batch(replay))
+                tds[key] = learner.last_td_error()
+                if i + 1 == RL_DQN_SYNC_AFTER:
+                    learner.update_target()
+            td_err.append(float(np.abs(tds["cuda"] - tds["cpu"]).max() / np.abs(tds["cpu"]).max()))
+            buf.update_priorities(replay["batch_indexes"], tds["cpu"])
+        return out
+
+    res = _hold_updates("[rllib rest] (a) DQN", card,
+                        lambda d: DQNLearner(spec, {**conf, "device": d}), _learner_optimizers,
+                        run_all, {"module": dcfg.lr})
+    learners = res.pop("learners")
+    card_l, cpu_l = learners["cuda"], learners["cpu"]
+    target_err = max(float((card_l.target.state_dict()[k].cpu() - v).abs().max())
+                     for k, v in cpu_l.target.state_dict().items())
+    replay = buf.sample(RL_DQN_B)
+    ms = _time_card(lambda: card_l.update_from_batch(replay))
+    res.update(td_rel_err=max(td_err), target_err=target_err, update_ms=statistics.median(ms),
+               update_ms_all=ms)
+    print(f"[rllib rest] (a) DQN TD errors card vs CPU {max(td_err):.2e} of max (tol 1e-4) over "
+          f"{RL_DQN_UPDATES} updates; the target (synced after update {RL_DQN_SYNC_AFTER}) "
+          f"{target_err:.2e} from the CPU's; an update of {RL_DQN_B} rows on the card "
+          f"{res['update_ms']:.2f} ms (runs {[round(x, 2) for x in ms]}) — {card}", flush=True)
+    if max(td_err) > 1e-4 or target_err > 2 * dcfg.lr * RL_DQN_SYNC_AFTER:
+        raise AssertionError(f"(a) DQN's TD errors or target disagree: {res}")
+    return res
+
+
+def _sac_conf(cfg, **extra) -> dict:
+    return {"lr": cfg.lr, "gamma": cfg.gamma, "tau": cfg.tau, "initial_alpha": cfg.initial_alpha,
+            "target_entropy": cfg.target_entropy, "seed": 0, "hidden": (256, 256),
+            "action_low": np.array([-2.0], np.float32),
+            "action_high": np.array([2.0], np.float32), **extra}
+
+
+def _sac_optimizers(lrn) -> dict:
+    return {"pi": (lrn.pi_opt, _named(lrn.pi_net)), "q": (lrn.q_opt, _named(lrn.q_net)),
+            "alpha": (lrn.alpha_opt, [("log_alpha", lrn.log_alpha)])}
+
+
+def _rl_sac(card: str) -> dict:
+    """(b) SACLearner at hidden (256, 256) on Pendulum's shapes (obs 3, one
+    action in [-2, 2]), batch 256: 4 updates, each with one draw of noise
+    fed to every learner; alpha, the target critics' Polyak step and the
+    state's numpy round trip checked on the card."""
+    from ray_tpu_torch.rllib import RLModuleSpec, SampleBatch
+    from ray_tpu_torch.rllib.algorithms.sac import SACConfig, SACLearner
+
+    scfg = SACConfig()
+    spec = RLModuleSpec(observation_dim=3, action_dim=1, discrete=False, hidden=(256, 256))
+    conf = _sac_conf(scfg)
+    batches = [SampleBatch(_rl_transitions(RL_SAC_B, 3, 10 + i, discrete=False))
+               for i in range(RL_SAC_UPDATES)]
+    draw = SACLearner(spec, {**conf, "device": "cpu", "seed": 5})
+    noises = [draw.draw_noise(RL_SAC_B) for _ in batches]
+    polyak = {}
+
+    def run_all(learners):
+        out = {}
+        for key, learner in learners.items():
+            out[key] = []
+            for b, nz in zip(batches, noises):
+                before = {k: v.detach().clone() for k, v in learner.target_q.state_dict().items()}
+                out[key].append(learner.update_from_batch(b, noise=nz))
+                # target <- (1 - tau) target + tau q, the step just taken
+                q = learner.q_net.state_dict()
+                polyak[key] = max([polyak.get(key, 0.0)] + [
+                    float((learner.target_q.state_dict()[k] - ((1 - scfg.tau) * v + scfg.tau * q[k]))
+                          .abs().max()) for k, v in before.items()])
+        return out
+
+    res = _hold_updates("[rllib rest] (b) SAC", card,
+                        lambda d: SACLearner(spec, {**conf, "device": d}), _sac_optimizers,
+                        run_all, {"pi": scfg.lr, "q": scfg.lr, "alpha": scfg.lr})
+    card_l = res.pop("learners")["cuda"]
+    alpha = (res["metrics_cuda"]["alpha"], res["metrics_cpu"]["alpha"])
+    state = card_l.get_state()
+    fresh = SACLearner(spec, {**conf, "device": "cuda", "seed": 9})
+    fresh.set_state(state)
+    again = fresh.get_state()
+    round_trip = all(np.array_equal(again[k][n], v)
+                     for k in ("pi", "q", "target_q") for n, v in state[k].items())
+    round_trip = round_trip and bool(np.array_equal(again["log_alpha"], state["log_alpha"]))
+    ms = _time_card(lambda: card_l.update_from_batch(batches[0], noise=noises[0]))
+    res.update(alpha=alpha, polyak_err=polyak["cuda"], state_round_trip=round_trip,
+               update_ms=statistics.median(ms), update_ms_all=ms)
+    print(f"[rllib rest] (b) SAC alpha after {RL_SAC_UPDATES} updates {alpha[0]:.8f} on the "
+          f"card, {alpha[1]:.8f} on the CPU; the target critics' Polyak step {polyak['cuda']:.2e} "
+          f"from (1 - tau) target + tau q (tol 1e-6); the state's numpy round trip "
+          f"{'exact' if round_trip else 'DIFFERS'}; an update of {RL_SAC_B} rows on the card "
+          f"{res['update_ms']:.2f} ms (runs {[round(x, 2) for x in ms]}) — {card}", flush=True)
+    if not (round_trip and polyak["cuda"] <= 1e-6 and _rel_err(*alpha) <= 1e-4):
+        raise AssertionError(f"(b) SAC's alpha, target or state disagrees: {res}")
+    return res
+
+
+def _rl_offline_rows() -> list:
+    """Seeded transitions on Pendulum's shapes in episodes of
+    RL_OFFLINE_EP rows, with a behaviour logp, as JSON-able rows."""
+    rng = np.random.default_rng(21)
+    n = RL_OFFLINE_ROWS
+    obs = rng.standard_normal((n, 3)).astype(np.float32)
+    acts = np.clip(0.5 * obs[:, :1] + 0.3 * rng.standard_normal((n, 1)), -2, 2).astype(np.float32)
+    ends = (np.arange(n) % RL_OFFLINE_EP) == RL_OFFLINE_EP - 1
+    return [{"obs": obs[i].tolist(), "actions": acts[i].tolist(),
+             "rewards": float(-np.sum((acts[i] - 0.5 * obs[i, :1]) ** 2)),
+             "terminateds": bool(ends[i]), "truncateds": False,
+             "eps_id": int(i // RL_OFFLINE_EP), "action_logp": float(-0.3 - 0.1 * (i % 7))}
+            for i in range(n)]
+
+
+def _rl_offline_write_read(root: str) -> dict:
+    """(c), inside the cluster: the rows written as parquet through the
+    port's Data and as JSONL through JsonWriter, each read back through
+    OfflineData; every column equal to the written rows, in order."""
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.rllib import SampleBatch
+    from ray_tpu_torch.rllib.offline import JsonWriter, OfflineData
+
+    rows = _rl_offline_rows()
+    written = SampleBatch({k: np.asarray([r[k] for r in rows]) for k in rows[0]})
+    rd.from_items(rows, parallelism=1).write_parquet(os.path.join(root, "parquet"))
+    w = JsonWriter(os.path.join(root, "jsonl"), max_rows_per_shard=RL_OFFLINE_ROWS // 4)
+    w.write(written)
+    w.close()
+    out = {}
+    for fmt in ("parquet", "jsonl"):
+        ds = OfflineData(os.path.join(root, fmt))
+        same = ds.count == len(rows) and all(
+            np.array_equal(np.asarray(ds[k], written[k].dtype).reshape(written[k].shape), written[k])
+            for k in written)
+        out[fmt] = {"rows": ds.count, "equal": bool(same)}
+        if not same:
+            raise AssertionError(f"(c) OfflineData from {fmt} differs from the written rows")
+    print(f"[rllib rest] (c) {len(rows)} transitions written as parquet (port's Data) and JSONL "
+          f"(JsonWriter, 4 shards), read back through OfflineData: {out}", flush=True)
+    out["data"] = OfflineData(os.path.join(root, "parquet"))
+    return out
+
+
+def _rl_offline(card: str, io: dict) -> dict:
+    """(c) on the data ``io`` read back: BC and MARWIL each one train()
+    iteration with the learner on cuda, held by ``_hold_updates`` against
+    the same on the CPU (every Adam step's loss, the first step, the
+    weights after it); CQL's
+    learner (hidden (256, 256), batch 256, bc_iters 1) one update in its
+    BC phase and one after it with injected noise; IS and WIS of one
+    RLModule's weights on the card and on the CPU."""
+    from ray_tpu_torch.rllib import BCConfig, MARWILConfig, RLModuleSpec, SampleBatch
+    from ray_tpu_torch.rllib.algorithms.cql import CQLConfig, CQLLearner
+    from ray_tpu_torch.rllib.offline import ImportanceSampling, WeightedImportanceSampling
+
+    data = io.pop("data")
+    res = {"read": io}
+    held = ("bc_logp", "logp", "entropy", "mean_adv_weight")
+    for name, cfg_cls, extra in (("BC", BCConfig, {}), ("MARWIL", MARWILConfig, {"beta": 1.0})):
+        def build(dev, cfg_cls=cfg_cls, extra=extra):
+            return (cfg_cls().offline_data(input_=data)
+                    .training(train_batch_size=512, minibatch_size=128, num_epochs=2,
+                              model={"hidden": (256, 256)}, **extra)
+                    .learners(device=dev).debugging(seed=3)).build()
+
+        def train(algo):
+            # the learner's metrics (of the last minibatch), not train()'s counters
+            return [{k: v for k, v in algo.train().items() if k.endswith("loss") or k in held}]
+
+        out = _hold_updates(
+            f"[rllib rest] (c) {name} train(), 512 rows x 2 epochs of minibatch 128, hidden "
+            f"(256, 256),", card, build,
+            lambda algo: _learner_optimizers(algo.learner_group._local), _each(train),
+            {"module": cfg_cls().lr}, lambda metric: CNN_LOSS_TOL,
+            loss_of=lambda algo: (algo.learner_group._local, "compute_loss"))
+        algos = out.pop("learners")
+        for algo in algos.values():
+            algo.cleanup()
+        out["device"] = str(algos["cuda"].learner_group._local.device)
+        res[name] = out
+        if not out["device"].startswith("cuda"):
+            raise AssertionError(f"(c) {name}'s learner is not on the card: {out}")
+
+    data.ensure_next_obs()
+    ccfg = CQLConfig()
+    spec = RLModuleSpec(observation_dim=3, action_dim=1, discrete=False, hidden=(256, 256))
+    conf = _sac_conf(ccfg, bc_iters=1, temperature=ccfg.temperature,
+                     num_actions=ccfg.num_actions, min_q_weight=ccfg.min_q_weight)
+    batches = [data.sample(RL_SAC_B) for _ in range(2)]
+    draw = CQLLearner(spec, {**conf, "device": "cpu", "seed": 5})
+    noises = [draw.draw_noise(RL_SAC_B) for _ in batches]
+
+    def run_all(learners):
+        return {key: [lrn.update_from_batch(b, noise=nz) for b, nz in zip(batches, noises)]
+                for key, lrn in learners.items()}
+
+    cql = _hold_updates("[rllib rest] (c) CQL", card,
+                        lambda d: CQLLearner(spec, {**conf, "device": d}), _sac_optimizers,
+                        run_all, {"pi": ccfg.lr, "q": ccfg.lr, "alpha": ccfg.lr})
+    card_l = cql.pop("learners")["cuda"]
+    ms = _time_card(lambda: card_l.update_from_batch(batches[1], noise=noises[1]))
+    cql.update(update_ms=statistics.median(ms), update_ms_all=ms)
+    res["CQL"] = cql
+    print(f"[rllib rest] (c) CQL updates 1 (BC phase) and 2 (SAC's actor) held; an update of "
+          f"{RL_SAC_B} rows on the card {cql['update_ms']:.2f} ms (runs "
+          f"{[round(x, 2) for x in ms]}) — {card}", flush=True)
+
+    module = RLModuleSpec(observation_dim=3, action_dim=1, discrete=False,
+                          hidden=(64, 64)).build(torch.Generator().manual_seed(4))
+    on_card = copy.deepcopy(module).to("cuda")
+    # a behaviour logp near the module's own, so the episodes' weights
+    # neither vanish nor hit the estimators' clip
+    with torch.no_grad():
+        logp = module.forward_train(torch.as_tensor(np.asarray(data["obs"], np.float32)),
+                                    torch.as_tensor(np.asarray(data["actions"], np.float32)))[0]
+    noise = 0.05 * np.random.default_rng(8).standard_normal(data.count)
+    episodes = SampleBatch({**data.batch, "action_logp": (logp.numpy() + noise).astype(np.float32)})
+    est = {}
+    for cls in (ImportanceSampling, WeightedImportanceSampling):
+        want = cls(module, gamma=0.99).estimate(episodes)
+        t = time.perf_counter()
+        got = cls(on_card, gamma=0.99).estimate(episodes)
+        est[cls.__name__] = {"card": got, "cpu": want, "card_s": time.perf_counter() - t,
+                             "rel_err": max(_rel_err(got[k], v, 1e-6) for k, v in want.items())}
+    res["estimators"] = est
+    errs = {k: f"{v['rel_err']:.1e}" for k, v in est.items()}
+    print(f"[rllib rest] (c) IS and WIS over {RL_OFFLINE_ROWS // RL_OFFLINE_EP} episodes, the "
+          f"target logp from the module on the card vs the CPU: {errs} (tol 1e-5); v_target "
+          f"{ {k: round(v['card']['v_target'], 6) for k, v in est.items()} } — {card}", flush=True)
+    if any(v["rel_err"] > 1e-5 for v in est.values()):
+        raise AssertionError(f"(c) the estimates on the card disagree: {est}")
+    return res
+
+
+class _SmokeWalkers:
+    """A two-agent env in plain Python (no gymnasium): each agent moves -1
+    or +1 a step on a line and is rewarded for staying near 0; walker_1
+    leaves the episode past 3, the episode truncates after 16 steps."""
+
+    possible_agents = ["walker_0", "walker_1"]
+
+    def __init__(self):
+        self._rng = np.random.default_rng(0)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._pos = {a: float(self._rng.integers(-2, 3)) for a in self.possible_agents}
+        self._t = 0
+        return {a: self._obs(a) for a in self._pos}, {}
+
+    def _obs(self, agent):
+        return np.array([self._pos[agent] / 4.0, self._t / 16.0, float(agent[-1] == "1")],
+                        np.float32)
+
+    def step(self, action_dict):
+        self._t += 1
+        obs, rew, term, trunc = {}, {}, {}, {}
+        for a, act in action_dict.items():
+            self._pos[a] += 1.0 if int(act) == 1 else -1.0
+            rew[a] = 1.0 - abs(self._pos[a]) / 4.0
+            term[a] = a == "walker_1" and abs(self._pos[a]) > 3
+            trunc[a] = self._t >= 16
+            if term[a]:
+                del self._pos[a]
+            else:
+                obs[a] = self._obs(a)
+        term["__all__"] = not self._pos
+        trunc["__all__"] = self._t >= 16
+        return obs, rew, term, trunc, {}
+
+    def close(self):
+        pass
+
+
+def _rl_multi_agent(card: str, root: str) -> dict:
+    """(d), inside the cluster: PPO with multi_agent() of two explicit
+    RLModuleSpecs on _SmokeWalkers, two CPU env runner actors, a learner
+    group a policy on cuda: one train() iteration reports both policies;
+    the learners on the card, the runners without a CUDA context; a
+    checkpoint restores both policies' weights (float64 sums)."""
+    from ray_tpu_torch.rllib import PPOConfig, RLModuleSpec
+
+    specs = {p: RLModuleSpec(observation_dim=3, action_dim=2, hidden=(64, 64))
+             for p in ("p0", "p1")}
+    cfg = (PPOConfig().environment(env_creator=_SmokeWalkers)
+           .env_runners(num_env_runners=2, num_cpus_per_env_runner=0.5, rollout_fragment_length=64)
+           .multi_agent(policies=specs, policy_mapping_fn=lambda agent: "p" + agent[-1])
+           .training(train_batch_size=256, minibatch_size=64, num_epochs=2)
+           .learners(device="cuda").debugging(seed=1))
+    t = time.perf_counter()
+    algo = cfg.build()
+    res = {"build_s": time.perf_counter() - t}
+    ckpt = os.path.join(root, "ma_ckpt")
+    try:
+        t = time.perf_counter()
+        out = algo.train()
+        res["train_s"] = time.perf_counter() - t
+        states = ray_tpu_torch.get([r.__ray_call__.remote(_cuda_state)
+                                    for r in algo.env_runner_group.runners])
+        res.update(policies=sorted(k for k in out if k in specs),
+                   env_steps=out["num_env_steps_sampled"],
+                   losses={p: out[p]["total_loss"] for p in specs},
+                   learner_devices={p: str(lg._local.device)
+                                    for p, lg in algo.learner_groups.items()},
+                   runners_cuda_context=[ctx for _, ctx in states],
+                   runners_map_uvm=[_maps_uvm(pid) for pid, _ in states],
+                   driver_maps_uvm=_maps_uvm(os.getpid()),
+                   runners_map_libcuda=[_maps_libcuda(pid) for pid, _ in states])
+        res["weights_sum"] = {p: _weights_sum(w) for p, w in algo.get_policy_weights().items()}
+        os.makedirs(ckpt)
+        algo.save_checkpoint(ckpt)
+    finally:
+        algo.cleanup()
+    # restored into a build whose runner is local (no actor to start)
+    t = time.perf_counter()
+    restored = cfg.copy().env_runners(num_env_runners=0).build()
+    try:
+        restored.load_checkpoint(ckpt)
+        res["restored_sum"] = {p: _weights_sum(w) for p, w in restored.get_policy_weights().items()}
+        res["restore_s"] = time.perf_counter() - t
+    finally:
+        restored.cleanup()
+    print(f"[rllib rest] (d) multi-agent PPO on _SmokeWalkers (no gymnasium), 2 CPU runner "
+          f"actors, learner groups {res['learner_devices']}: one train() "
+          f"({res['train_s']:.2f} s; build {res['build_s']:.2f} s) reports {res['policies']} over "
+          f"{res['env_steps']} agent steps, losses {res['losses']}; a CUDA context in the "
+          f"runners {res['runners_cuda_context']}, /dev/nvidia-uvm mapped in the runners "
+          f"{res['runners_map_uvm']} and in the driver {res['driver_maps_uvm']} (libcuda mapped "
+          f"{res['runners_map_libcuda']}: import torch maps it); checkpoint weight sums {res['weights_sum']} restored "
+          f"as {res['restored_sum']} ({res['restore_s']:.2f} s) — {card}", flush=True)
+    if not (res["policies"] == ["p0", "p1"] and res["restored_sum"] == res["weights_sum"]
+            and all(d.startswith("cuda") for d in res["learner_devices"].values())
+            and not any(res["runners_cuda_context"]) and not any(res["runners_map_uvm"])
+            and res["driver_maps_uvm"]
+            and all(math.isfinite(v) for v in res["losses"].values())):
+        raise AssertionError(f"(d) multi-agent PPO on the card failed its checks: {res}")
+    return res
+
+
+def _dreamer_batch(cfg, obs_dim: int, n_act: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    B, L = cfg.batch_seqs, cfg.seq_len
+    is_first = (rng.random((B, L)) < 0.05).astype(np.float32)
+    is_first[:, 0] = 1.0
+    return {"obs": rng.standard_normal((B, L, obs_dim)).astype(np.float32),
+            "prev_actions": np.eye(n_act, dtype=np.float32)[rng.integers(0, n_act, (B, L))],
+            "rewards": np.ones((B, L), np.float32),
+            "terminateds": (rng.random((B, L)) < 0.05).astype(np.float32),
+            "is_first": is_first}
+
+
+def _rl_dreamer(card: str) -> dict:
+    """(e) DreamerV3Learner at the reference's defaults (deter 128, 8 x 8
+    stochastic, hidden (128,), 16 sequences of 16 steps, horizon 10) on
+    CartPole's shapes: one update with injected Gumbel noise, card vs CPU
+    (each world-model loss term to 1e-4 relative, each gradient of the
+    three AdamWs to 1e-3 of max, the parameters after them by phase 8's
+    rule); then 8 updates timed on the card."""
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import DreamerV3Config, DreamerV3Learner
+
+    obs_dim, n_act = 4, 2
+    cfg = DreamerV3Config()
+    batch = _dreamer_batch(cfg, obs_dim, n_act, 31)
+    draw = DreamerV3Learner(copy.deepcopy(cfg).learners(device="cpu"), obs_dim, n_act, seed=5)
+    noise = draw.draw_noise(cfg.batch_seqs, cfg.seq_len)
+
+    def run_all(learners):
+        return {key: [lrn.update_from_batch(batch, noise=noise)] for key, lrn in learners.items()}
+
+    def first_tol(metric):
+        # the world model's terms come from identical weights; the actor's
+        # and critic's read the world model after its AdamW step
+        return 1e-4 if metric.startswith("wm_") or metric == "world_model_loss" else CNN_LOSS_TOL
+
+    res = _hold_updates(
+        "[rllib rest] (e) DreamerV3", card,
+        lambda d: DreamerV3Learner(copy.deepcopy(cfg).learners(device=d), obs_dim, n_act, seed=0),
+        lambda lrn: {"wm": (lrn.wm_opt, _named(lrn.nets)),
+                     "actor": (lrn.actor_opt, _named(lrn.actor)),
+                     "critic": (lrn.critic_opt, _named(lrn.critic))},
+        run_all, {"wm": cfg.lr, "actor": cfg.actor_lr, "critic": cfg.critic_lr},
+        first_tol=first_tol)
+    card_l = res.pop("learners")["cuda"]
+    ms = _time_card(lambda: card_l.update_from_batch(batch), reps=RL_DREAMER_TIMED)
+    res.update(update_ms=statistics.median(ms), update_ms_all=ms)
+    print(f"[rllib rest] (e) DreamerV3 update ([16, 16] sequences, horizon 10) on the card "
+          f"{res['update_ms']:.2f} ms (median of {RL_DREAMER_TIMED}: "
+          f"{[round(x, 2) for x in ms]}); metrics {res['metrics_cuda']} — {card}", flush=True)
+    return res
+
+
+def phase_rllib_rest(card: str) -> dict:
+    """The rest of RLlib on the card, f32, card vs CPU from the same
+    weights and noise: under a cluster of its own, (c)'s parquet and JSONL
+    round trips and (d) multi-agent PPO; then (a) DQN, (b) SAC, (c) BC,
+    MARWIL, CQL and the estimators, (e) DreamerV3."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = {"card": card}
+    parts = res["seconds_by_part"] = {}
+
+    def part(name, fn, *args):
+        return _part(parts, name, fn, *args, tag="rllib rest")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rllib_") as root:
+        ray_tpu_torch.init(num_cpus=4)
+        try:
+            io = part("(c) offline write and read", _rl_offline_write_read, root)
+            res["multi_agent"] = part("(d) multi-agent PPO", _rl_multi_agent, card, root)
+        finally:
+            ray_tpu_torch.shutdown()
+        res["processes_left"] = _wait_no_port_processes("rllib rest")
+        parts["shutdown"] = time.perf_counter() - t0 - sum(parts.values())
+    res["dqn"] = part("(a) DQN", _rl_dqn, card)
+    res["sac"] = part("(b) SAC", _rl_sac, card)
+    res["offline"] = part("(c) offline", _rl_offline, card, io)
+    res["dreamer"] = part("(e) DreamerV3", _rl_dreamer, card)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[rllib rest] phase took {res['seconds']:.1f} s: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
+    print("[rllib rest] " + json.dumps(res, default=str), flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
@@ -4256,6 +4799,7 @@ def main() -> int:
     sharded = timed("sharded", phase_sharded, card, data)
     pipeline = timed("pipeline", phase_pipeline, card, data)
     tune_rllib = timed("tune and rllib", phase_tune_rllib, card, train)
+    timed("rllib rest", phase_rllib_rest, card)
     sweep = tune_rllib["sweep"]["trials"]
     for i, rec in enumerate(train_recs):
         rec["in_tune_trial_launches"] = {str(lr): t["launches"][i] for lr, t in sweep.items()}

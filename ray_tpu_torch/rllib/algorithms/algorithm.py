@@ -6,12 +6,12 @@ An Algorithm is a tune.Trainable: `algo.train()` runs one iteration;
 Tuner(PPO, ...) sweeps it; checkpoints flow through the same
 save/restore hooks the reference uses (Checkpointable).
 
-The port runs the single-agent paths: env-runner actors on the CPU, the
-learner on ``learners(device=...)`` (``cuda`` by default), synchronously
-or, with ``podracer()``, over the streaming plane (core/stream.py), whose
-sebulba inference server lives on the learner's device.  Multi-agent
-configs are ROADMAP Queue A item 5(c); building one raises
-``NotImplementedError``.
+The port runs env-runner actors on the CPU and the learner on
+``learners(device=...)`` (``cuda`` by default), synchronously or, with
+``podracer()``, over the streaming plane (core/stream.py), whose sebulba
+inference server lives on the learner's device.  A ``multi_agent()``
+config builds one LearnerGroup per policy, each on that device, beside a
+MultiAgentEnvRunnerGroup.
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ from ray_tpu_torch.rllib.core.learner import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
 from ray_tpu_torch.tune.trainable import Trainable
-
-REST_ITEM = "ROADMAP.md Queue A item 5(c), the rest of RLlib"
 
 
 class AlgorithmConfig:
@@ -176,8 +174,7 @@ class AlgorithmConfig:
     def multi_agent(self, *, policies: Optional[Dict[str, Any]] = None,
                     policy_mapping_fn: Optional[Callable[[str], str]] = None):
         """Declare the policy set and the agent→policy routing
-        (reference: algorithm_config.py multi_agent()).  Building an
-        algorithm from a multi-agent config raises: not ported yet."""
+        (reference: algorithm_config.py multi_agent())."""
         if policies is not None:
             self.policies = dict(policies)
         if policy_mapping_fn is not None:
@@ -243,8 +240,11 @@ class Algorithm(Trainable):
 
     config_class: Type[AlgorithmConfig] = AlgorithmConfig
     learner_class = None  # set by subclasses
+    supports_multi_agent = False  # PPO opts in
     # V-trace-style algorithms keep autoreset rows for fixed batch shapes
     mask_autoreset_rows = True
+    # None where the algorithm samples its own env or reads offline data
+    env_runner_group = None
 
     def __init__(self, config=None, trial_dir: str = "."):
         # Accept AlgorithmConfig directly or a tune config dict (for
@@ -261,7 +261,7 @@ class Algorithm(Trainable):
     def setup(self, config: Dict[str, Any]):
         cfg = self.algo_config
         if cfg.is_multi_agent:
-            raise NotImplementedError(f"multi_agent() configs: {REST_ITEM}")
+            return self._setup_multi_agent()
         env_creator = cfg.make_env_creator()
         probe_env = env_creator()
         self.module_spec = RLModuleSpec.from_gym_env(
@@ -352,6 +352,74 @@ class Algorithm(Trainable):
         )
         self._timesteps_total = 0
 
+    def _setup_multi_agent(self):
+        """Multi-agent wiring: one RLModuleSpec + LearnerGroup per
+        policy (each on ``learner_device``), a MultiAgentEnvRunnerGroup
+        routing agents to policies (reference: algorithm.py setup() with
+        config.policies).  A policy given as an RLModuleSpec is taken as
+        it is: a config of explicit specs needs no gymnasium."""
+        from ray_tpu_torch.rllib.env.multi_agent_env import MultiAgentEnvRunnerGroup
+
+        cfg = self.algo_config
+        if not type(self).supports_multi_agent:
+            raise ValueError(
+                f"{type(self).__name__} does not support multi_agent() configs "
+                "(its training_step drives a single learner group)"
+            )
+        if cfg.env_creator is None:
+            raise ValueError("multi-agent configs require environment(env_creator=...)")
+        mapping = cfg.policy_mapping_fn or (lambda agent_id: agent_id)
+        probe = cfg.env_creator()
+        # Infer each policy's spec from the first agent that maps to it.
+        specs: Dict[str, RLModuleSpec] = {}
+        for pid, given in cfg.policies.items():
+            if given is not None:
+                specs[pid] = given
+                continue
+            agent = next(
+                (a for a in probe.possible_agents if mapping(a) == pid), None
+            )
+            if agent is None:
+                raise ValueError(f"no agent maps to policy {pid!r}")
+
+            class _SpaceView:  # minimal gym-like view for from_gym_env
+                observation_space = probe.observation_space_for(agent)
+                action_space = probe.action_space_for(agent)
+
+            specs[pid] = RLModuleSpec.from_gym_env(
+                _SpaceView,
+                hidden=tuple(cfg.model.get("hidden", (64, 64))),
+                vf_share_layers=cfg.model.get("vf_share_layers", False),
+            )
+        probe.close()
+        self.module_specs = specs
+        self.policy_mapping_fn = mapping
+        self.env_runner_group = MultiAgentEnvRunnerGroup(
+            cfg.env_creator,
+            specs,
+            mapping,
+            num_env_runners=cfg.num_env_runners,
+            rollout_fragment_length=cfg.rollout_fragment_length,
+            gamma=cfg.gamma,
+            lambda_=getattr(cfg, "lambda_", 0.95),
+            num_cpus_per_runner=cfg.num_cpus_per_env_runner,
+            seed=cfg.seed,
+            inference_backend=cfg.inference_backend,
+        )
+        self.learner_groups = {
+            pid: LearnerGroup(
+                type(self).learner_class,
+                spec,
+                config=self._learner_config(),
+                num_learners=0,
+            )
+            for pid, spec in specs.items()
+        }
+        self.env_runner_group.sync_weights(
+            {pid: lg.get_weights() for pid, lg in self.learner_groups.items()}
+        )
+        self._timesteps_total = 0
+
     def _needs_advantages(self) -> bool:
         return True
 
@@ -364,7 +432,8 @@ class Algorithm(Trainable):
         t0 = time.time()
         results = self.training_step()
         results.setdefault("timesteps_total", self._timesteps_total)
-        results.update(self.env_runner_group.aggregate_metrics())
+        if self.env_runner_group is not None:
+            results.update(self.env_runner_group.aggregate_metrics())
         results["time_this_iter_s"] = time.time() - t0
         self._maybe_evaluate(results)
         return results
@@ -410,6 +479,8 @@ class Algorithm(Trainable):
         Q-net, SAC's squashed Gaussian) override this with their own
         greedy rollout."""
         cfg = self.algo_config
+        if cfg.is_multi_agent:
+            raise NotImplementedError("evaluate() is single-agent")
         if getattr(self, "_eval_runner_group", None) is None:
             self._eval_runner_group = self._make_eval_runner_group()
         group = self._eval_runner_group
@@ -435,7 +506,10 @@ class Algorithm(Trainable):
     # -- checkpoints (reference: rllib/utils/checkpoints.py
     # Checkpointable) ----------------------------------------------------
     def save_checkpoint(self, checkpoint_dir: str):
-        learner_state = self.learner_group.get_state()
+        if self.algo_config.is_multi_agent:
+            learner_state = {pid: lg.get_state() for pid, lg in self.learner_groups.items()}
+        else:
+            learner_state = self.learner_group.get_state()
         import cloudpickle
 
         state = {
@@ -455,8 +529,15 @@ class Algorithm(Trainable):
     def load_checkpoint(self, checkpoint_dir: str):
         with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"), "rb") as f:
             state = pickle.load(f)
-        self.learner_group.set_state(state["learner"])
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        if self.algo_config.is_multi_agent:
+            for pid, s in state["learner"].items():
+                self.learner_groups[pid].set_state(s)
+            self.env_runner_group.sync_weights(
+                {pid: lg.get_weights() for pid, lg in self.learner_groups.items()}
+            )
+        else:
+            self.learner_group.set_state(state["learner"])
+            self.env_runner_group.sync_weights(self.learner_group.get_weights())
         self._timesteps_total = state.get("timesteps_total", 0)
 
     @classmethod
@@ -475,12 +556,18 @@ class Algorithm(Trainable):
         return algo
 
     def get_policy_weights(self):
+        if self.algo_config.is_multi_agent:
+            return {pid: lg.get_weights() for pid, lg in self.learner_groups.items()}
         return self.learner_group.get_weights()
 
     def cleanup(self):
         self.env_runner_group.stop()
         if getattr(self, "_eval_runner_group", None) is not None:
             self._eval_runner_group.stop()
-        self.learner_group.shutdown()
+        if self.algo_config.is_multi_agent:
+            for lg in self.learner_groups.values():
+                lg.shutdown()
+        else:
+            self.learner_group.shutdown()
 
     stop = cleanup

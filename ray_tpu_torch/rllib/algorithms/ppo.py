@@ -6,7 +6,7 @@ The update runs on the learner's device (``cuda`` by default); rollouts
 come from CPU env-runner actors (SURVEY.md §2.5: env runners stay CPU
 actors), synchronously or, with ``podracer()``, streamed as fragments
 whose GAE the learner computes (``prepare_fragments``).  Multi-agent PPO
-is ROADMAP Queue A item 5(c)."""
+updates one learner group a policy, each on the learner's device."""
 
 from __future__ import annotations
 
@@ -124,6 +124,7 @@ class PPOLearner(Learner):
 class PPO(Algorithm):
     config_class = PPOConfig
     learner_class = PPOLearner
+    supports_multi_agent = True
 
     def _learner_config(self) -> Dict[str, Any]:
         cfg = self.algo_config
@@ -139,6 +140,8 @@ class PPO(Algorithm):
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.algo_config
+        if cfg.is_multi_agent:
+            return self._multi_agent_training_step()
         if cfg.podracer_enabled:
             return self._podracer_step()
         # ① synchronous parallel rollouts (ppo.py:408)
@@ -176,4 +179,28 @@ class PPO(Algorithm):
         out = dict(metrics)
         out["num_env_steps_sampled"] = steps
         out.update(drv.metrics())
+        return out
+
+    def _multi_agent_training_step(self) -> Dict[str, Any]:
+        """Per-policy PPO epochs over each policy's share of the joint
+        rollout (reference: multi-agent training_step — one Learner per
+        policy, sync weight fan-out keyed by policy id)."""
+        cfg = self.algo_config
+        runners = max(1, cfg.num_env_runners)
+        per_runner = max(1, cfg.train_batch_size // runners)
+        batches = self.env_runner_group.sample(per_runner)
+        out: Dict[str, Any] = {}
+        steps = 0
+        for pid, batch in batches.items():
+            steps += batch.count
+            batch[ADVANTAGES] = standardize(batch[ADVANTAGES])
+            metrics = self.learner_groups[pid].update_from_batch(
+                batch, minibatch_size=cfg.minibatch_size, num_epochs=cfg.num_epochs
+            )
+            out[pid] = metrics
+        self._timesteps_total += steps
+        self.env_runner_group.sync_weights(
+            {pid: lg.get_weights() for pid, lg in self.learner_groups.items()}
+        )
+        out["num_env_steps_sampled"] = steps
         return out

@@ -36,6 +36,36 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 
+def learner_device(device: str = "cuda"):
+    """The ``torch.device`` a learner updates on: a card by index (a
+    learner may step on another thread), with TF32 off so that float32
+    means float32 and the CPU learner stays its reference.  Raises when
+    ``cuda`` is asked for without a card."""
+    import torch
+
+    from ray_tpu_torch._private.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def batch_tensor(value, device):
+    """A batch column as a tensor on ``device``; float64 becomes float32,
+    as the reference's arrays do (JAX without x64), so rows read from
+    JSON or Python floats feed a float32 module."""
+    import torch
+
+    a = np.asarray(value)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.as_tensor(a).to(device)
+
+
 def _pad_rows(count: int, multiple: int) -> np.ndarray:
     """Row indices that cycle ``count`` rows up to a multiple of
     ``multiple``."""
@@ -55,20 +85,11 @@ class Learner:
     def __init__(self, module_spec, config: Optional[Dict[str, Any]] = None):
         import torch
 
-        from ray_tpu_torch._private.device import resolve_device
-
         self.config = config or {}
         self.module_spec = module_spec
-        self.device = resolve_device(self.config.get("device", "cuda"))
-        if self.device.type == "cuda":
-            if self.device.index is None:
-                # a card by index: the learner may step on another thread
-                self.device = torch.device("cuda", torch.cuda.current_device())
-            # float32 means float32: the CPU learner is its reference
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = learner_device(self.config.get("device", "cuda"))
         self._gen = torch.Generator().manual_seed(int(self.config.get("seed", 0)))
-        self.module = module_spec.build(self._gen).to(self.device)
+        self.module = self.build_module().to(self.device)
         self.grad_clip = self.config.get("grad_clip", None)
         # optax.adam's defaults; torch's Adam takes the same step
         self.optimizer = torch.optim.Adam(
@@ -80,6 +101,11 @@ class Learner:
         self._weights_lock = threading.Lock()
 
     # -- subclass API ----------------------------------------------------
+    def build_module(self):
+        """The module this learner trains, on the CPU, its weights drawn
+        from the learner's generator (DQN's learner builds its Q-net)."""
+        return self.module_spec.build(self._gen)
+
     def compute_loss(self, batch: Dict[str, Any]) -> Any:
         """Return (loss_scalar, metrics_dict) for a dict of tensors on the
         learner's device."""
@@ -94,9 +120,7 @@ class Learner:
 
     # -- update ----------------------------------------------------------
     def _to_device(self, batch, idx: np.ndarray) -> Dict[str, Any]:
-        import torch
-
-        return {k: torch.as_tensor(np.asarray(v)[idx]).to(self.device) for k, v in batch.items()}
+        return {k: batch_tensor(np.asarray(v)[idx], self.device) for k, v in batch.items()}
 
     def _step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """One loss -> gradient -> Adam step on ``compute_loss``."""

@@ -68,6 +68,16 @@ class RLModuleSpec:
         return RLModule(self, generator)
 
 
+def weights_of(module: nn.Module) -> Dict[str, np.ndarray]:
+    """A module's state as {name: numpy array}, off the device."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
+
+
+def load_weights(module: nn.Module, weights: Dict[str, Any]) -> None:
+    """Load ``weights_of``'s dict (numpy or tensors) into ``module``."""
+    module.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in weights.items()})
+
+
 def _init_params(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Normal draws of std 1/sqrt(fan_in) for every ``Linear`` and
     ``Conv2d`` weight (fan-in in x k x k), zero biases, in module order;
@@ -193,11 +203,10 @@ class RLModule(nn.Module):
 
     # -- weights ---------------------------------------------------------
     def get_weights(self) -> Dict[str, np.ndarray]:
-        """{parameter name: float numpy array}, off the device."""
-        return {k: v.detach().cpu().numpy().copy() for k, v in self.state_dict().items()}
+        return weights_of(self)
 
     def set_weights(self, weights: Dict[str, Any]) -> None:
-        self.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in weights.items()})
+        load_weights(self, weights)
 
 
 class QModule(nn.Module):
@@ -227,3 +236,5 @@ class QModule(nn.Module):
         return self.val_head(h) + adv - adv.mean(dim=-1, keepdim=True)
 
     forward = q_values
+    get_weights = RLModule.get_weights
+    set_weights = RLModule.set_weights

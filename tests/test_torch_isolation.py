@@ -81,7 +81,13 @@ _TUNE_RLLIB_MODULES = (
     "ray_tpu_torch.rllib.algorithms.ppo", "ray_tpu_torch.rllib.connectors",
     "ray_tpu_torch.rllib.utils.postprocessing", "ray_tpu_torch.rllib.core.stream",
     "ray_tpu_torch.rllib.core.inference", "ray_tpu_torch.rllib.algorithms.impala",
-    "ray_tpu_torch.rllib.algorithms.appo",
+    "ray_tpu_torch.rllib.algorithms.appo", "ray_tpu_torch.rllib.algorithms.dqn",
+    "ray_tpu_torch.rllib.algorithms.sac", "ray_tpu_torch.rllib.algorithms.cql",
+    "ray_tpu_torch.rllib.algorithms.bc", "ray_tpu_torch.rllib.algorithms.marwil",
+    "ray_tpu_torch.rllib.algorithms.dreamerv3", "ray_tpu_torch.rllib.env.multi_agent_env",
+    "ray_tpu_torch.rllib.offline", "ray_tpu_torch.rllib.offline.offline_data",
+    "ray_tpu_torch.rllib.offline.estimators", "ray_tpu_torch.rllib.utils.replay_buffers",
+    "ray_tpu_torch.rllib.utils.collector", "ray_tpu_torch.rllib.utils.evaluation",
 )
 
 
@@ -131,7 +137,14 @@ def test_port_sources_import_no_jax_and_no_ray_tpu_at_any_depth():
     assert len(read) > 90
     assert {"ray_tpu_torch/rllib/core/stream.py", "ray_tpu_torch/rllib/core/inference.py",
             "ray_tpu_torch/rllib/algorithms/impala.py",
-            "ray_tpu_torch/rllib/algorithms/appo.py"} <= read
+            "ray_tpu_torch/rllib/algorithms/appo.py", "ray_tpu_torch/rllib/algorithms/dqn.py",
+            "ray_tpu_torch/rllib/algorithms/sac.py", "ray_tpu_torch/rllib/algorithms/cql.py",
+            "ray_tpu_torch/rllib/algorithms/bc.py", "ray_tpu_torch/rllib/algorithms/marwil.py",
+            "ray_tpu_torch/rllib/algorithms/dreamerv3.py",
+            "ray_tpu_torch/rllib/env/multi_agent_env.py",
+            "ray_tpu_torch/rllib/offline/offline_data.py",
+            "ray_tpu_torch/rllib/offline/estimators.py",
+            "ray_tpu_torch/rllib/utils/replay_buffers.py"} <= read
     assert bad == []
 
 

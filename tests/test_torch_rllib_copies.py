@@ -1,14 +1,13 @@
 """Copies of tests/test_rllib.py's sample-batch, GAE, connector,
-autoreset and RLModule-shape tests on the port (no JAX here; the module
-test draws from a torch generator), and the port's checks that need no
-cluster: the reference's names and paths that are not ported raise,
-naming their ROADMAP item; cuda refused without a card; a remote cuda
+autoreset, replay-buffer and RLModule-shape tests on the port (no JAX
+here; the module test draws from a torch generator), and the port's
+checks that need no cluster: every name of the reference resolves, a
+multi-agent config of explicit specs builds and trains without
+gymnasium; cuda refused without a card; a remote cuda
 learner's GPU lease; the podracer plane's pieces in one process (a
 fragment's columns and sizes, the inference server's batched answers,
 the learner's weight lock, APPO's target copy, the learner thread's
 errors)."""
-
-import re
 
 import numpy as np
 import pytest
@@ -114,23 +113,144 @@ def test_rl_module_shapes():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("DQN", "5(c)"), ("SAC", "5(c)"), ("CQL", "5(c)"), ("BC", "5(c)"), ("MARWIL", "5(c)"),
-    ("DreamerV3", "5(c)"), ("MultiAgentEnv", "5(c)"), ("ReplayBuffer", "5(c)"),
+    ("DQN", "algorithms.dqn"), ("SAC", "algorithms.sac"), ("CQL", "algorithms.cql"),
+    ("BC", "algorithms.bc"), ("MARWIL", "algorithms.marwil"), ("DreamerV3", "algorithms.dreamerv3"),
+    ("MultiAgentEnv", "env.multi_agent_env"), ("ReplayBuffer", "utils.replay_buffers"),
 ])
 def test_names_not_ported_raise_naming_their_item(name, item):
+    """Once stubs that raised naming ROADMAP item 5(c); now each name
+    resolves to the port's class in its module, beside every other name
+    the reference exports."""
+    import importlib
+
     import ray_tpu_torch.rllib as rllib
 
-    with pytest.raises(NotImplementedError, match=rf"Queue A item {re.escape(item)}"):
-        getattr(rllib, name)
+    cls = getattr(rllib, name)
+    assert cls is getattr(importlib.import_module(f"ray_tpu_torch.rllib.{item}"), name)
+    assert name in rllib.__all__
+    if item.startswith("algorithms."):
+        config = getattr(rllib, f"{name}Config")()
+        assert config.algo_class is cls and config.learner_device == "cuda"
 
 
-def test_deferred_paths_raise_naming_their_item():
-    from ray_tpu_torch.rllib import PPOConfig
+class _TwoWalkers:
+    """Two agents on a line, no gymnasium: each moves -1/+1 a step,
+    reward -|position|/10; ``walker_1`` terminates on its own past 3, the
+    episode truncates after 12 steps."""
 
-    cfg = (PPOConfig().environment("CartPole-v1").learners(device="cpu")
-           .multi_agent(policies={"p0": None}, policy_mapping_fn=lambda a: "p0"))
-    with pytest.raises(NotImplementedError, match=r"item 5\(c\)"):
-        cfg.build()
+    possible_agents = ["walker_0", "walker_1"]
+
+    def __init__(self):
+        self._rng = np.random.default_rng(0)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._pos = {a: float(self._rng.integers(-2, 3)) for a in self.possible_agents}
+        self._t = 0
+        return {a: self._obs(a) for a in self._pos}, {}
+
+    def _obs(self, agent):
+        p = self._pos[agent]
+        return np.array([p / 4.0, self._t / 12.0, 1.0 if agent == "walker_1" else 0.0],
+                        np.float32)
+
+    def step(self, action_dict):
+        self._t += 1
+        obs, rew, term, trunc = {}, {}, {}, {}
+        for a, act in action_dict.items():
+            self._pos[a] += 1.0 if int(act) == 1 else -1.0
+            rew[a] = -abs(self._pos[a]) / 10.0
+            term[a] = a == "walker_1" and abs(self._pos[a]) > 3
+            trunc[a] = self._t >= 12
+            if term[a]:
+                del self._pos[a]
+            else:
+                obs[a] = self._obs(a)
+        term["__all__"] = not self._pos
+        trunc["__all__"] = self._t >= 12
+        return obs, rew, term, trunc, {}
+
+    def close(self):
+        pass
+
+
+def test_deferred_paths_raise_naming_their_item(tmp_path):
+    """Once a multi_agent() config raised naming item 5(c); now a PPO
+    config of explicit RLModuleSpecs on a plain-Python env (no gymnasium)
+    builds on the CPU, trains one iteration reporting both policies, and
+    its learner groups are one a policy."""
+    from ray_tpu_torch.rllib import PPOConfig, RLModuleSpec
+
+    specs = {pid: RLModuleSpec(observation_dim=3, action_dim=2, hidden=(8,))
+             for pid in ("p0", "p1")}
+    cfg = (PPOConfig().environment(env_creator=_TwoWalkers).learners(device="cpu")
+           .env_runners(num_env_runners=0, rollout_fragment_length=32)
+           .training(train_batch_size=32, minibatch_size=16, num_epochs=1)
+           .multi_agent(policies=specs, policy_mapping_fn=lambda a: "p" + a[-1]))
+    algo = cfg.build()
+    try:
+        assert set(algo.learner_groups) == {"p0", "p1"}
+        assert all(str(lg._local.device) == "cpu" for lg in algo.learner_groups.values())
+        out = algo.train()
+        assert {"p0", "p1"} <= set(out) and out["num_env_steps_sampled"] > 0
+        assert set(algo.get_policy_weights()) == {"p0", "p1"}
+    finally:
+        algo.cleanup()
+
+
+def test_replay_buffer_wraps():
+    from ray_tpu_torch.rllib import ReplayBuffer, SampleBatch
+
+    buf = ReplayBuffer(capacity=8, seed=0)
+    for i in range(3):
+        buf.add(SampleBatch({"x": np.arange(4) + 4 * i}))
+    assert len(buf) == 8
+    s = buf.sample(16)
+    assert s.count == 16
+    assert s["x"].min() >= 4  # first batch was overwritten
+
+
+def test_prioritized_buffer_prefers_high_priority():
+    from ray_tpu_torch.rllib import PrioritizedReplayBuffer, SampleBatch
+
+    buf = PrioritizedReplayBuffer(capacity=64, alpha=1.0, seed=0)
+    buf.add(SampleBatch({"x": np.arange(64)}))
+    # element 7 gets huge priority
+    prios = np.full(64, 0.001)
+    prios[7] = 100.0
+    buf.update_priorities(np.arange(64), prios)
+    s = buf.sample(256)
+    frac_7 = (s["x"] == 7).mean()
+    assert frac_7 > 0.5
+
+
+def test_the_rest_of_rllib_refuses_cuda_without_a_card(monkeypatch):
+    """DQN's, SAC's, CQL's, BC's, MARWIL's and DreamerV3's learners default
+    to cuda and raise without a card; a multi-agent runner asked to infer
+    on cuda raises, and refuses any other backend than cpu or cuda."""
+    from ray_tpu_torch.rllib import MultiAgentEnvRunner, RLModuleSpec
+    from ray_tpu_torch.rllib.algorithms.bc import BCLearner
+    from ray_tpu_torch.rllib.algorithms.cql import CQLLearner
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import DreamerV3Config, DreamerV3Learner
+    from ray_tpu_torch.rllib.algorithms.marwil import MARWILLearner
+    from ray_tpu_torch.rllib.algorithms.sac import SACLearner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    discrete = RLModuleSpec(observation_dim=3, action_dim=2, hidden=(8,))
+    continuous = RLModuleSpec(observation_dim=3, action_dim=1, discrete=False, hidden=(8,))
+    for make in (lambda: DQNLearner(discrete, {}), lambda: BCLearner(discrete, {}),
+                 lambda: MARWILLearner(discrete, {}), lambda: SACLearner(continuous, {}),
+                 lambda: CQLLearner(continuous, {}),
+                 lambda: DreamerV3Learner(DreamerV3Config().training(hidden=(8,)), 3, 2)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    specs = {"p0": discrete}
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultiAgentEnvRunner(_TwoWalkers, specs, lambda a: "p0", inference_backend="cuda")
+    with pytest.raises(ValueError, match="inference_backend"):
+        MultiAgentEnvRunner(_TwoWalkers, specs, lambda a: "p0", inference_backend="")
 
 
 def test_cuda_learner_and_inference_refuse_a_machine_without_a_card(monkeypatch):
