@@ -74,10 +74,29 @@ and prints no result line):
                   CPU tensor, through the object store) and its launches,
                   equal to the driver's to 1e-4 relative and (12, 12, 12);
                   (b) GPT-2 small at bench.py's configuration trains inside
-                  TorchTrainer.fit() on one GPU worker, phase 9's warm-up
-                  and timed steps, B1 = B2 = B3 = n_layer launches a step
-                  counted inside the worker, its step time printed beside
-                  phase 9's raw step; shutdown() leaves no port process.
+                  TorchTrainer.fit() on one GPU worker, phase 9's 3 warm-up
+                  steps and then 60 timed ones, B1 = B2 = B3 = n_layer
+                  launches a step counted inside the worker, the first 13
+                  losses equal to phase 9's raw run to 1e-5 relative; while
+                  it steps, a thread of the driver finds the worker through
+                  util.state.list_actors and takes util.state.profile(worker,
+                  duration_s=2, mode="cpu"): complete, samples > 0, a share
+                  in gpt2_loop's frames, the record in state.profiles(); its
+                  top 10 frames, its window against the timed steps, and the
+                  step time under it beside phase 9's raw step are printed;
+                  (c) the cluster's head runs the Ray Client server
+                  (ray_client_server_port): a subprocess that imports no
+                  torch connects with init("ray://..."), builds an
+                  ActorPool of two num_gpus=0.5 actors, each GPT-2 small f32
+                  on the card from one seed, and maps 8 batches of [4, 512]
+                  prompts: last-position logits and greedy ids (numpy) equal
+                  this process's card forward bit for bit in submission
+                  order, map_unordered the same set, B1 12 x 8 launches
+                  (each call's count put on a util.queue.Queue the client
+                  drains), no libtorch or libcuda in the client's maps, the
+                  pool's tasks in state.timeline(), and after it disconnects
+                  its actors DEAD and GPU 1.0 free; shutdown() leaves no
+                  port process (the client server included).
 16. serve plane — the serve control plane on the card on the routers'
                   actor-RPC path (serve_channel_dataplane off for its
                   cluster, and the replica's dataplane serves nothing),
@@ -110,7 +129,16 @@ and prints no result line):
                   phase 16, and the replica's dataplane served all 16
                   streams and every stream item (no request fell back to
                   RPC); the controller and both proxies map neither
-                  libcuda nor libtorch.  Then a compiled DAG: Prefill (a
+                  libcuda nor libtorch.  Beside the bf16 mix,
+                  util.state.profile(replica, duration_s=1.5, mode="cpu"):
+                  complete, a share in the engine's step loop, its top 10
+                  frames printed; then one streamed bf16 request with a
+                  traceparent, sent through the proxy's own handle in the
+                  proxy's process (its HTTP handler reads no such header):
+                  state.traces() holds one connected trace over the driver,
+                  the proxy and the replica, its critical path segments and
+                  state.dataplane()'s per-hop queue waits (p50, p95)
+                  printed.  Then a compiled DAG: Prefill (a
                   num_gpus=1 actor, GPT-2 small f32 on its card, the
                   attention through B1) returns the last position's
                   logits [4, vocab] as a CUDA tensor, Argmax (a CPU actor)
@@ -1565,7 +1593,9 @@ def _moe_on_ep_mesh(cpu_model, x) -> dict:
 # The runtime: GPU as a resource, a num_gpus=1 actor, and the training
 # path inside TorchTrainer.fit() on one GPU worker
 # ----------------------------------------------------------------------
-_RUNTIME_ENTRY = "ray_tpu_torch._private."  # head_main, raylet_main, default_worker
+# head_main, raylet_main, default_worker, and the Ray Client server a head
+# started with ray_client_server_port spawns
+_RUNTIME_ENTRY = ("ray_tpu_torch._private.", "ray_tpu_torch.util.client.server_main")
 
 
 def _port_processes() -> dict:
@@ -1580,7 +1610,7 @@ def _port_processes() -> dict:
                 cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
         except OSError:
             continue
-        if _RUNTIME_ENTRY in cmd:
+        if any(entry in cmd for entry in _RUNTIME_ENTRY):
             out[int(pid)] = cmd.strip()
     return out
 
@@ -1620,6 +1650,367 @@ def _compute_app_pids() -> set:
     return {int(x) for x in out.split() if x.strip().isdigit()}
 
 
+# (b) the profiled fit and (c) the Ray Client pool
+_CLIENT_PORT_ENV = "RAY_TPU_TORCH_ray_client_server_port"
+# (b): timed steps of the profiled fit (phase 9's TRAIN_STEPS, then more, so
+# a TRAINER_PROFILE_S capture that starts TRAINER_PROFILE_DELAY_S after the
+# loop's first step was seen ends before the loop does: the worker goes
+# with fit()).  The delay outlasts most of the warm-up (its three steps
+# took 2.3 and 2.8 s on two card machines), so the capture falls in the
+# timed steps.
+PROFILED_STEPS = 60
+TRAINER_PROFILE_S, TRAINER_PROFILE_DELAY_S, PROBE_S = 2.0, 2.5, 0.2
+
+
+class _Background:
+    """fn() on a daemon thread; join() returns its result or raises what it
+    raised."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:  # noqa: BLE001 — re-raised by join()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True, name="chip-smoke-bg")
+        self._thread.start()
+
+    def join(self, timeout: float):
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise AssertionError(f"a background check did not end within {timeout} s")
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def _alive_actor(match, deadline_s: float = 300.0) -> dict:
+    """The first ALIVE actor of util.state.list_actors() that ``match``
+    accepts, waiting for it up to ``deadline_s``."""
+    from ray_tpu_torch.util import state
+
+    deadline = time.monotonic() + deadline_s
+    while True:
+        found = [a for a in state.list_actors([("state", "=", "ALIVE")]) if match(a)]
+        if found:
+            return found[0]
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no live actor matched within {deadline_s} s: "
+                                 f"{state.list_actors()}")
+        time.sleep(0.1)
+
+
+def _profile_trainer() -> dict:
+    """(b)'s capture, run beside fit(): find the training worker through
+    util.state.list_actors, probe it with PROBE_S captures until its stacks
+    show the loop's step (gpt2_loop.py:one_step), wait out the first, slow
+    step, then take the TRAINER_PROFILE_S capture."""
+    from ray_tpu_torch.util import state
+
+    t0 = time.perf_counter()
+    worker = _alive_actor(lambda a: a["class_name"].endswith("RayTrainWorker"))
+    t_found = time.perf_counter()
+    probes, deadline = 0, time.monotonic() + 300
+    while True:
+        probe = state.profile(worker["actor_id"], duration_s=PROBE_S)
+        probes += 1
+        if not probe.complete:
+            raise AssertionError(f"a probe of the training worker failed: {probe.errors}")
+        if any("gpt2_loop.py:one_step" in k for k in probe.merged_samples()):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("the training worker never reached its steps")
+    t_step = time.perf_counter()
+    time.sleep(TRAINER_PROFILE_DELAY_S)
+    # mode "cpu": threads parked in a wait (the runtime's flush and RPC
+    # loops) drop out, the training thread's host time stays
+    result = state.profile(worker["actor_id"], duration_s=TRAINER_PROFILE_S, mode="cpu")
+    return {"worker": worker, "result": result, "probes": probes,
+            "find_s": t_found - t0, "probe_s": t_step - t_found,
+            "capture_s": time.perf_counter() - t_step}
+
+
+def _hold_trainer_profile(card: str, prof: dict, m: dict) -> dict:
+    """(b)'s holds: the capture is complete with samples, the loop's frames
+    have a share of them, the GCS profile table has the record; its top
+    frames and the window it covered are printed."""
+    from ray_tpu_torch.util import state
+
+    result, worker = prof["result"], prof["worker"]
+    rec = result.profiles[0] if result.profiles else {}
+    share = result.attribution("gpt2_loop")
+    sid = rec.get("session_id")
+    shipped, deadline = [], time.monotonic() + 15
+    while sid and not shipped and time.monotonic() < deadline:
+        shipped = state.profiles(session_id=sid)
+        if not shipped:
+            time.sleep(0.2)
+    # the dump stops the sampler, whose thread stamps the end after it: the
+    # record shipped at that end has it
+    stamps = m["timeline"]
+    timed = (stamps["timed"], stamps["steps"])
+    start = rec.get("started_at") or 0.0
+    end = (rec.get("ended_at") or (shipped[0].get("ended_at") if shipped else None)
+           or start + TRAINER_PROFILE_S)
+    window = (start, end)
+    prof["timed_window_s"] = timed[1] - timed[0]
+    prof["timed_overlap_s"] = max(0.0, min(window[1], timed[1]) - max(window[0], timed[0]))
+    top = result.top_frames(10)
+    out = {"worker": worker["actor_id"], "pid": worker["pid"], "complete": result.complete,
+           "errors": result.errors, "total_samples": result.total_samples,
+           "hz": rec.get("hz"), "gpt2_loop_share": share, "in_profile_table": bool(shipped),
+           "top_frames": [[f, c, round(fr, 4)] for f, c, fr in top],
+           "window": {"started_after_model_s": window[0] - stamps["model"],
+                      "ended_before_steps_end_s": timed[1] - window[1],
+                      "timed_window_s": prof["timed_window_s"],
+                      "timed_overlap_s": prof["timed_overlap_s"]},
+           "probes": prof["probes"], "find_s": prof["find_s"], "probe_s": prof["probe_s"],
+           "capture_s": prof["capture_s"]}
+    print(f"[runtime] util.state.profile(training worker {worker['actor_id'][:8]}, pid "
+          f"{worker['pid']}, duration_s={TRAINER_PROFILE_S}, mode='cpu') during fit(): complete "
+          f"{result.complete}, {result.total_samples} samples at {rec.get('hz')} Hz, share in "
+          f"gpt2_loop frames {share:.4f}, in state.profiles() {bool(shipped)}; the window "
+          f"began {out['window']['started_after_model_s']:.2f} s after the model was built "
+          f"({prof['probes']} probes of {PROBE_S} s found the steps, then "
+          f"{TRAINER_PROFILE_DELAY_S} s) and ended {out['window']['ended_before_steps_end_s']:.2f}"
+          f" s before the steps did, covering {prof['timed_overlap_s']:.2f} s of the "
+          f"{prof['timed_window_s']:.2f} s timed window — {card}", flush=True)
+    for f, c, fr in top:
+        print(f"[runtime]   top frame {f}: {c} samples ({fr:.4f})", flush=True)
+    if not (result.complete and result.total_samples > 0 and share > 0 and shipped):
+        raise AssertionError(f"the trainer's capture failed its holds: {out}")
+    return out
+
+
+# (c): the ray:// driver's script.  It runs in a process of its own that
+# imports the port and numpy and never torch: the pool's actors (defined
+# here, so pickled by value) import torch in their own processes.
+CLIENT_B, CLIENT_T, CLIENT_BATCHES, CLIENT_SEED = 4, 512, 8, 0
+_CLIENT_SCRIPT = r"""
+import json, os, sys, time
+
+import numpy as np
+
+import ray_tpu_torch
+from ray_tpu_torch.util import ActorPool
+from ray_tpu_torch.util.queue import Queue
+
+address, out_dir = sys.argv[1], sys.argv[2]
+B, T, N, SEED, VOCAB = (int(x) for x in sys.argv[3:8])
+t0 = time.perf_counter()
+ray_tpu_torch.init(address)
+t_conn = time.perf_counter()
+
+
+@ray_tpu_torch.remote(num_gpus=0.5)
+class PoolGPT2:
+    def __init__(self, seed):
+        import torch
+
+        from ray_tpu_torch.models import gpt2
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+        model = gpt2.init_model(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        self.model = model.to("cuda").eval()
+
+    def ready(self):
+        return os.getpid()
+
+    def forward(self, tokens, q):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        before = fa.flash_attention_fwd.launches
+        with torch.inference_mode():
+            logits = self.model(torch.tensor(tokens).to("cuda"))[:, -1]
+            ids = logits.argmax(-1)
+        out = (logits.cpu().numpy(), ids.cpu().numpy())
+        q.put(fa.flash_attention_fwd.launches - before)
+        return out
+
+
+actors = [PoolGPT2.remote(SEED) for _ in range(2)]
+pids = ray_tpu_torch.get([a.ready.remote() for a in actors], timeout=600)
+t_ready = time.perf_counter()
+batches = [np.random.default_rng(200 + i).integers(0, VOCAB, size=(B, T)) for i in range(N)]
+q = Queue()
+pool = ActorPool(actors)
+ordered = list(pool.map(lambda a, b: a.forward.remote(b, q), batches))
+t_map = time.perf_counter()
+counts = [q.get(timeout=120) for _ in range(N)]
+unordered = list(pool.map_unordered(lambda a, b: a.forward.remote(b, q), batches))
+counts_unordered = [q.get(timeout=120) for _ in range(N)]
+t_end = time.perf_counter()
+q.shutdown()
+with open("/proc/self/maps") as f:
+    maps = f.read()
+np.savez(os.path.join(out_dir, "out.npz"), logits=np.stack([o[0] for o in ordered]),
+         ids=np.stack([o[1] for o in ordered]),
+         u_logits=np.stack([o[0] for o in unordered]), u_ids=np.stack([o[1] for o in unordered]))
+summary = json.dumps({
+    "launches": counts, "launches_unordered": counts_unordered,
+    "actor_ids": [a._actor_id.hex() for a in actors], "actor_pids": pids,
+    "libtorch": "libtorch" in maps, "libcuda": "libcuda" in maps,
+    "torch_imported": "torch" in sys.modules, "pid": os.getpid(),
+    "connect_s": t_conn - t0, "actors_ready_s": t_ready - t_conn, "map_s": t_map - t_ready,
+    "unordered_s": t_end - t_map,
+})
+with open(os.path.join(out_dir, "summary.tmp"), "w") as f:
+    f.write(summary)
+os.replace(os.path.join(out_dir, "summary.tmp"), os.path.join(out_dir, "summary.json"))
+# stay connected (the actors alive) until the driver has read the
+# timeline: a killed actor's unflushed task events die with it
+deadline = time.monotonic() + 120
+while not os.path.exists(os.path.join(out_dir, "release")) and time.monotonic() < deadline:
+    time.sleep(0.05)
+ray_tpu_torch.shutdown()
+print(summary)
+"""
+
+
+def _client_pool(card: str, port: int) -> dict:
+    """(c) A ray:// driver in a subprocess: an ActorPool of two num_gpus=0.5
+    actors, each GPT-2 small f32 on the card from one seed, maps 8 batches
+    of [4, 512] prompts; every logit and greedy id equals this process's
+    forward on the same card, B1 launched 12 x 8 times (counts through a
+    util.queue.Queue the client drains), the client without torch, and
+    after it disconnects its actors are DEAD, the GPU back and the pool's
+    tasks in state.timeline()."""
+    from ray_tpu_torch._private import rpc
+    from ray_tpu_torch.util import state
+
+    deadline = time.monotonic() + 30
+    while True:  # the head spawned the client server at init(): wait for it to listen
+        try:
+            rpc.RpcClient(f"tcp:127.0.0.1:{port}").close()
+            break
+        except rpc.RpcError:  # not listening yet
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the head's client server never listened on {port}")
+            time.sleep(0.2)
+    deadline = time.monotonic() + 60  # (b)'s worker gives its lease back
+    while ray_tpu_torch.available_resources().get("GPU", 0.0) != 1.0:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the GPU never came back after fit(): "
+                                 f"{ray_tpu_torch.available_resources()}")
+        time.sleep(0.1)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_client_") as tmp:
+        script = os.path.join(tmp, "client.py")
+        with open(script, "w") as f:
+            f.write(_CLIENT_SCRIPT)
+        env = {k: v for k, v in os.environ.items() if not k.startswith("RAY_TPU_TORCH_")}
+        env["PYTHONPATH"] = repo
+        proc = subprocess.Popen(
+            [sys.executable, script, f"ray://127.0.0.1:{port}", tmp,
+             *(str(x) for x in (CLIENT_B, CLIENT_T, CLIENT_BATCHES, CLIENT_SEED, PROMPT_VOCAB))],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            # this process's reference meanwhile: the same model and batches
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+            model = gpt2.init_model(cfg, torch.Generator().manual_seed(CLIENT_SEED),
+                                    device="cpu").to("cuda").eval()
+            batches = [np.random.default_rng(200 + i).integers(0, PROMPT_VOCAB,
+                                                               size=(CLIENT_B, CLIENT_T))
+                       for i in range(CLIENT_BATCHES)]
+            with torch.inference_mode():
+                want = [model(torch.from_numpy(b).to("cuda"))[:, -1] for b in batches]
+                want_ids = [w.argmax(-1).cpu().numpy() for w in want]
+                want = [w.cpu().numpy() for w in want]
+            del model
+            torch.cuda.empty_cache()
+            # the client's results, while it stays connected
+            deadline = time.monotonic() + 600
+            while not os.path.exists(os.path.join(tmp, "summary.json")):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    out = proc.communicate(timeout=30)[0] if proc.poll() is not None else ""
+                    raise AssertionError(f"the ray:// client ended ({proc.returncode}) "
+                                         f"without its results: {out[-4000:]}")
+                time.sleep(0.1)
+            with open(os.path.join(tmp, "summary.json")) as f:
+                summary = json.load(f)
+            ids_hex = set(summary["actor_ids"])
+            # the pool's tasks in state.timeline(), its actors still alive
+            path = os.path.join(tmp, "timeline.json")
+            deadline = time.monotonic() + 20
+            while True:
+                with open(state.timeline(path)) as f:
+                    events = json.load(f)
+                pool_events = [e for e in events if e.get("name") == "forward"
+                               and (e.get("args") or {}).get("actor_id") in ids_hex]
+                if len(pool_events) >= 2 * CLIENT_BATCHES or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            with open(os.path.join(tmp, "release"), "w"):
+                pass
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"the ray:// client failed ({proc.returncode}): {out[-4000:]}")
+        got = np.load(os.path.join(tmp, "out.npz"))
+        logits, ids, u_logits, u_ids = (got[k] for k in ("logits", "ids", "u_logits", "u_ids"))
+    bad = [i for i in range(CLIENT_BATCHES)
+           if not (np.array_equal(logits[i], want[i]) and np.array_equal(ids[i], want_ids[i]))]
+    err = float(max(np.abs(logits[i].astype(np.float64) - want[i]).max()
+                    for i in range(CLIENT_BATCHES)))
+    keys = sorted(logits[i].tobytes() + ids[i].tobytes() for i in range(CLIENT_BATCHES))
+    u_keys = sorted(u_logits[i].tobytes() + u_ids[i].tobytes() for i in range(CLIENT_BATCHES))
+    same_set = keys == u_keys
+    want_launches = cfg.n_layer * CLIENT_BATCHES
+    # after the disconnect: the client's actors die with its connection and
+    # the card's GPU goes back
+    deadline, states = time.monotonic() + 30, {}
+    while True:
+        states = {a["actor_id"]: a["state"] for a in state.list_actors()
+                  if a["actor_id"] in ids_hex}
+        gpu = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        if (len(states) == 2 and set(states.values()) == {"DEAD"} and gpu == 1.0) or (
+                time.monotonic() > deadline):
+            break
+        time.sleep(0.2)
+    res = {**summary, "bad": bad, "max_abs_diff": err, "unordered_same_set": same_set,
+           "actor_states": states, "gpu_after": gpu, "timeline_pool_events": len(pool_events),
+           "timeline_events": len(events)}
+    print(f"[runtime] ray:// client (pid {summary['pid']}, connected in "
+          f"{summary['connect_s']:.2f} s): ActorPool of two num_gpus=0.5 actors (pids "
+          f"{summary['actor_pids']}, GPT-2 small f32 on the card, ready in "
+          f"{summary['actors_ready_s']:.2f} s), pool.map over {CLIENT_BATCHES} batches of "
+          f"[{CLIENT_B}, {CLIENT_T}] in {summary['map_s']:.2f} s: batches differing from this "
+          f"process's forward {bad} (max |diff| {err:.3e}, want 0), map_unordered the same set "
+          f"{same_set}; B1 launches through the queue {sum(summary['launches'])} (want "
+          f"{want_launches}) and {sum(summary['launches_unordered'])} unordered; the client maps "
+          f"libtorch {summary['libtorch']}, libcuda {summary['libcuda']}; after it disconnected "
+          f"its actors {sorted(states.values())}, GPU free {gpu}; state.timeline() holds "
+          f"{len(pool_events)} of the pool's forward events — {card}", flush=True)
+    if bad or err != 0.0 or not same_set:
+        raise AssertionError(f"the pool's logits differ from the driver's forward: {bad}, {err}")
+    if (sum(summary["launches"]) != want_launches
+            or sum(summary["launches_unordered"]) != want_launches):
+        raise AssertionError(f"B1 launched {summary['launches']} / "
+                             f"{summary['launches_unordered']}, want {want_launches} each")
+    if summary["libtorch"] or summary["libcuda"] or summary["torch_imported"]:
+        raise AssertionError(f"the ray:// client loaded torch or CUDA: {summary}")
+    if len(states) != 2 or set(states.values()) != {"DEAD"} or gpu != 1.0:
+        raise AssertionError(f"the client's actors outlived it: {states}, GPU {gpu}")
+    if len(pool_events) < 2 * CLIENT_BATCHES:
+        raise AssertionError(f"state.timeline() holds {len(pool_events)} of the pool's "
+                             f"{2 * CLIENT_BATCHES} forward tasks")
+    return res
+
+
 @ray_tpu_torch.remote(num_gpus=1)
 class GPT2StepActor:
     """A GPU actor that takes one float32 AdamW step of GPT-2 small, as
@@ -1656,8 +2047,14 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
     driver's own f32 step), ``raw`` phase 9's (the raw training path)."""
     torch.cuda.empty_cache()  # the earlier phases' cached blocks go back to the card
     t0 = time.perf_counter()
-    ctx = ray_tpu_torch.init(num_cpus=4)
-    res = {"session_dir": ctx["session_dir"], "card": card}
+    # (c)'s ray:// endpoint: the head spawns the client server on this port
+    client_port = _free_port()
+    os.environ[_CLIENT_PORT_ENV] = str(client_port)
+    try:
+        ctx = ray_tpu_torch.init(num_cpus=4)
+    finally:
+        os.environ.pop(_CLIENT_PORT_ENV)
+    res = {"session_dir": ctx["session_dir"], "card": card, "client_port": client_port}
     try:
         resources = ray_tpu_torch.cluster_resources()
         res["cluster_gpus"] = resources.get("GPU")
@@ -1703,29 +2100,37 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
                                  f"{res['actor']}")
         ray_tpu_torch.kill(actor)
 
-        # (b) the training path inside TorchTrainer.fit() on one GPU worker
+        # (b) the training path inside TorchTrainer.fit() on one GPU worker,
+        # profiled from a thread of the driver through util.state while it
+        # steps (PROFILED_STEPS timed steps, so the capture ends inside them)
         cfg = gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
         toks = np.random.default_rng(4).integers(0, PROMPT_VOCAB, size=(TRAIN_B, TRAIN_T + 1))
         _reset_counts()  # the driver's counts: they must stay 0 while the worker trains
+        t_b = time.perf_counter()
+        profiler = _Background(_profile_trainer)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as storage:
             result = TorchTrainer(
                 train_loop_per_worker,
                 train_loop_config={"cfg": cfg, "seed": 0, "tokens": toks, "lr": TRAIN_LR,
-                                   "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+                                   "warmup": TRAIN_WARMUP, "steps": PROFILED_STEPS,
                                    "device": "cuda", "peak_flops": PEAK_BF16_FLOPS},
                 scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
                 run_config=RunConfig(name="gpt2_in_framework", storage_path=storage),
             ).fit()
+        prof = profiler.join(timeout=120)
         m = result.metrics
-        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        n_steps = TRAIN_WARMUP + PROFILED_STEPS
         want = [cfg.n_layer * n_steps] * 3
         losses = m["losses"]
         res["trainer"] = {**m, "raw_step_ms": raw["step_ms"], "raw_losses": raw["losses"],
                           "driver_launches": list(_launch_counts())}
+        res["trainer_profile"] = _hold_trainer_profile(card, prof, m)
         print(f"[runtime] TorchTrainer.fit(), ScalingConfig(num_workers=1, use_gpu=True), GPT-2 "
               f"small bf16 compute / f32 params, B={TRAIN_B} T={TRAIN_T}, on "
               f"{m.get('device_name')}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
-              f"{n_steps} steps; in-framework step {m['step_ms']:.2f} ms beside the raw step "
+              f"{n_steps} steps; in-framework step {m['step_ms']:.2f} ms over {PROFILED_STEPS} "
+              f"timed steps, {prof['timed_overlap_s']:.2f} s of their "
+              f"{prof['timed_window_s']:.2f} s under the sampler, beside the raw step "
               f"{raw['step_ms']:.2f} ms (phase 9, this run), {m['tokens_per_s']:.0f} tok/s, "
               f"MFU {m['mfu']:.4f}; launches inside the worker B1/B2/B3 {m['launches']} = "
               f"{cfg.n_layer} x {n_steps}, the driver's {tuple(_launch_counts())} — {card}",
@@ -1738,14 +2143,24 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
             raise AssertionError(f"in-framework loss not finite and falling: {losses}")
         # the same weights (seed 0), batch, optimizer and steps as phase 9:
         # every step is the same bf16 computation in another process, so
-        # every loss, not only the first, holds the update to the raw run's
+        # every loss of phase 9's steps, not only the first, holds the
+        # update to the raw run's (the later, profiled steps have no raw twin)
         rels = [abs(a - b) / abs(b) for a, b in zip(losses, raw["losses"])]
         res["trainer"]["loss_rel_err_vs_raw"] = max(rels)
-        print(f"[runtime] losses {losses[0]:.6f} ... {losses[-1]:.6f} vs phase 9's "
+        print(f"[runtime] losses {losses[0]:.6f} ... {losses[len(rels) - 1]:.6f} vs phase 9's "
               f"{raw['losses'][0]:.6f} ... {raw['losses'][-1]:.6f} on the same weights and batch: "
-              f"max rel {max(rels):.2e} over {len(rels)} steps (tol 1e-5)", flush=True)
-        if len(losses) != len(raw["losses"]) or max(rels) > 1e-5:
+              f"max rel {max(rels):.2e} over the first {len(rels)} steps (tol 1e-5)", flush=True)
+        if (len(raw["losses"]) != TRAIN_WARMUP + TRAIN_STEPS or len(losses) != n_steps
+                or max(rels) > 1e-5):
             raise AssertionError(f"in-framework losses {losses} != raw {raw['losses']}")
+        print(f"[timing] runtime (b) profiled fit: {time.perf_counter() - t_b:.1f} s", flush=True)
+
+        # (c) Ray Client: a ray:// driver in a process without torch runs an
+        # ActorPool of two half-card GPT-2 actors
+        t_c = time.perf_counter()
+        res["client"] = _client_pool(card, client_port)
+        print(f"[timing] runtime (c) ray:// client pool: {time.perf_counter() - t_c:.1f} s",
+              flush=True)
     finally:
         ray_tpu_torch.shutdown()
     deadline = time.monotonic() + 20
@@ -1964,14 +2379,16 @@ def _serve_references() -> dict:
 
 
 def _serve_http(tag: str, card: str, engine_serve: dict, refs: dict, port: int,
-                while_f32=None, control=("SERVE_CONTROLLER", "SERVE_PROXY")) -> dict:
+                while_f32=None, control=("SERVE_CONTROLLER", "SERVE_PROXY"),
+                while_bf16=None) -> dict:
     """Phase 6's traffic through serve.run(llm.build_app(cfg)) and the HTTP
     proxy of a running serve instance: (a) the f32 mix as 16 concurrent
     chunked streams and one static batch, each against ``refs``; (b) the
     bf16 mix against phase 6's tokens (``engine_serve``), with the
     replica's B1 launches, KV pool and served streams read in the
     replica; (c) which processes map libcuda and libtorch.  ``while_f32``
-    runs while the f32 deployment still serves."""
+    runs while the f32 deployment still serves, ``while_bf16`` on a thread
+    of its own beside the bf16 mix (its result joins ``res``)."""
     mix, max_tokens, n_layer = refs["mix"], refs["max_tokens"], refs["n_layer"]
     cfg_bf16, cfg_f32, static_cfg = refs["cfg_bf16"], refs["cfg_f32"], refs["static_cfg"]
     res = {}
@@ -2024,9 +2441,12 @@ def _serve_http(tag: str, card: str, engine_serve: dict, refs: dict, port: int,
     _wait_route(port, "/llm_bf16")
     _http_call(port, "/llm_bf16", {"prompt": [1, 2, 3], "max_tokens": 2}, stream=True)
     handle.reset_launches.remote().result(timeout=120)
+    beside = _Background(while_bf16) if while_bf16 is not None else None
     t_start = time.perf_counter()
     got = _http_concurrent(port, "/llm_bf16", mix, stream=True)
     wall = max(g["t_end"] for g in got) - t_start
+    if beside is not None:
+        res.update(beside.join(timeout=120))
     launches = handle.launches.remote().result(timeout=120)
     served = handle.served.remote().result(timeout=120)
     for i, g in enumerate(got):
@@ -2322,6 +2742,145 @@ def _dag_gpu_stage(card: str) -> dict:
     return res
 
 
+REPLICA_PROFILE_S = 1.5  # inside the bf16 mix's wall over the dataplane
+# the step loop of the engine: the coroutine and the steps it hands its
+# executor
+ENGINE_LOOP_FRAMES = ("engine.py:_run", "engine.py:_decode_step", "engine.py:_prefill_step")
+TRACED_MAX_TOKENS = 32
+
+
+def _profile_replica() -> dict:
+    """util.state.profile of the bf16 replica, on a thread beside the mix."""
+    from ray_tpu_torch.util import state
+
+    t0 = time.perf_counter()
+    replica = _alive_actor(lambda a: (a.get("name") or "").startswith("SERVE_REPLICA::llm_bf16#"),
+                           deadline_s=30)
+    result = state.profile(replica["actor_id"], duration_s=REPLICA_PROFILE_S, mode="cpu")
+    return {"replica_capture": {"replica": replica, "result": result,
+                                "capture_s": time.perf_counter() - t0}}
+
+
+def _hold_replica_profile(card: str, cap: dict) -> dict:
+    result, replica = cap["result"], cap["replica"]
+    merged = result.merged_samples()
+    total = sum(merged.values())
+    loop = sum(c for k, c in merged.items() if any(f in k for f in ENGINE_LOOP_FRAMES))
+    share = loop / total if total else 0.0
+    top = result.top_frames(10)
+    out = {"replica": replica["actor_id"], "pid": replica["pid"], "complete": result.complete,
+           "errors": result.errors, "total_samples": result.total_samples,
+           "engine_loop_share": share,
+           "engine_frame_shares": {f: result.attribution(f) for f in ENGINE_LOOP_FRAMES},
+           "top_frames": [[f, c, round(fr, 4)] for f, c, fr in top],
+           "capture_s": cap["capture_s"]}
+    print(f"[dataplane] util.state.profile(replica {replica['name']}, pid {replica['pid']}, "
+          f"duration_s={REPLICA_PROFILE_S}, mode='cpu') beside the bf16 mix: complete "
+          f"{result.complete}, "
+          f"{result.total_samples} samples, share in the engine's step loop "
+          f"{ENGINE_LOOP_FRAMES} {share:.4f} ({json.dumps(out['engine_frame_shares'])}) — "
+          f"{card}", flush=True)
+    for f, c, fr in top:
+        print(f"[dataplane]   top frame {f}: {c} samples ({fr:.4f})", flush=True)
+    if not (result.complete and result.total_samples > 0 and share > 0):
+        raise AssertionError(f"the replica's capture failed its holds: {out}")
+    return out
+
+
+async def _proxy_traced_request(proxy, traceparent: str, name: str, payload: dict):
+    """Runs in the HTTP proxy's process (``__ray_call__``): one streamed
+    request to deployment ``name`` through the proxy's own handle and
+    router, under the context of ``traceparent``.  The proxy's HTTP handler
+    (as the reference's) reads no traceparent header, so the header's
+    context is installed here, as a proxy that honoured it would."""
+    import asyncio
+    import contextvars
+
+    from ray_tpu_torch.util import tracing
+
+    tracing.install_context(traceparent)
+    with tracing.start_span("serve.proxy.request", {"deployment": name}):
+        handle = proxy._handles[name]  # the one the HTTP route uses
+        ctx = contextvars.copy_context()  # the executor's thread gets the trace
+        loop = asyncio.get_running_loop()
+        events = await loop.run_in_executor(
+            proxy._route_pool, ctx.run,
+            lambda: list(handle.options(stream=True).generate.remote(payload)))
+    return {"tokens": [e["token"] for e in events if "token" in e],
+            "done": events[-1].get("done"), "pid": os.getpid()}
+
+
+def _traced_request(card: str, refs: dict) -> dict:
+    """One bf16 request with a traceparent through the proxy: state.traces()
+    gives one connected trace over the driver, the proxy and the replica;
+    its critical path and state.dataplane()'s per-hop queue waits are
+    printed."""
+    from ray_tpu_torch.util import state, tracing
+
+    proxy = ray_tpu_torch.get_actor("SERVE_PROXY", namespace="serve")
+    pids = _serve_actor_pids()
+    replica_pid = next(pid for name, pid in pids.items()
+                       if name.startswith("SERVE_REPLICA::llm_bf16#"))
+    payload = {"prompt": refs["mix"][3]["prompt"], "max_tokens": TRACED_MAX_TOKENS}
+    t0 = time.perf_counter()
+    with tracing.start_span("client.request") as root:
+        out = ray_tpu_torch.get(proxy.__ray_call__.remote(
+            _proxy_traced_request, tracing.current_traceparent(), "llm_bf16", payload),
+            timeout=180)
+    wall = time.perf_counter() - t0
+    want = {"client.request", "serve.proxy.request", "serve.router", "channel.write",
+            "channel.read", "serve.replica.stream", "serve.request", "serve.prefill",
+            "serve.decode"}
+    deadline, trace = time.monotonic() + 30, None
+    while True:
+        trace = next((t for t in state.traces() if t["trace_id"] == root.trace_id), None)
+        if trace is not None:
+            ids = {s["span_id"] for s in trace["spans"]}
+            orphans = [s["name"] for s in trace["spans"]
+                       if s.get("parent_span_id") and s["parent_span_id"] not in ids]
+            names = {s["name"] for s in trace["spans"]}
+            if (not orphans and want <= names
+                    and {out["pid"], replica_pid} <= set(trace["pids"])):
+                break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no connected trace over the proxy and the replica: "
+                                 f"{trace and sorted({s['name'] for s in trace['spans']})}, "
+                                 f"pids {trace and trace['pids']} (proxy {out['pid']}, replica "
+                                 f"{replica_pid})")
+        time.sleep(0.2)
+    segments = [(e["name"], e["duration_s"] * 1e3) for e in trace["critical_path"]
+                if e["segment"]]
+    dp = state.dataplane()
+    hops = [{"path": e["path"], "kind": e["kind"], "writes": e["writes"], "reads": e["reads"],
+             "reattaches": e["reattaches"], "reattach_failures": e["reattach_failures"],
+             "pids": e["pids"], "queue_wait_p50_ms": e["queue_wait"]["p50_s"] * 1e3,
+             "queue_wait_p95_ms": e["queue_wait"]["p95_s"] * 1e3,
+             "queue_wait_max_ms": e["queue_wait"]["max_s"] * 1e3,
+             "reads_timed": e["queue_wait"]["count"]} for e in dp["edges"]]
+    res = {"trace_id": root.trace_id, "span_count": trace["span_count"], "pids": trace["pids"],
+           "proxy_pid": out["pid"], "replica_pid": replica_pid, "tokens": len(out["tokens"]),
+           "wall_s": wall, "duration_s": trace["duration_s"],
+           "critical_path_s": trace["critical_path_s"],
+           "critical_path_ms": [[n, ms] for n, ms in segments], "hops": hops,
+           "channel_counters": dp["counters"]}
+    print(f"[dataplane] one traced bf16 request ({len(out['tokens'])} tokens) with a "
+          f"traceparent through the proxy's handle: one connected trace of "
+          f"{trace['span_count']} spans over pids {trace['pids']} (driver {os.getpid()}, proxy "
+          f"{out['pid']}, replica {replica_pid}), {trace['duration_s'] * 1e3:.2f} ms end to end, "
+          f"critical path {trace['critical_path_s'] * 1e3:.2f} ms — {card}", flush=True)
+    print("[dataplane]   critical path segments (ms): "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in segments), flush=True)
+    for h in hops:
+        print(f"[dataplane]   hop {h['path']} ({h['kind']}, pids {h['pids']}): {h['writes']} "
+              f"writes, {h['reads']} reads, {h['reattaches']} reattaches "
+              f"({h['reattach_failures']} failed); queue wait p50 {h['queue_wait_p50_ms']:.3f} ms, "
+              f"p95 {h['queue_wait_p95_ms']:.3f} ms, max {h['queue_wait_max_ms']:.3f} ms over "
+              f"{h['reads_timed']} reads", flush=True)
+    if len(out["tokens"]) != TRACED_MAX_TOKENS or not out["done"] or not hops:
+        raise AssertionError(f"the traced request: {len(out['tokens'])} tokens, hops {hops}")
+    return res
+
+
 GRPC_MIX = (0, 5, 10, 15)  # which of the mix's requests go over gRPC
 
 
@@ -2363,7 +2922,8 @@ def phase_dataplane(card: str, engine_serve: dict, plane: dict) -> dict:
         res.update(_serve_http(
             "dataplane", card, engine_serve, refs, port,
             while_f32=lambda: _grpc_requests(card, refs, grpc_port),
-            control=("SERVE_CONTROLLER", "SERVE_PROXY", "SERVE_GRPC_PROXY")))
+            control=("SERVE_CONTROLLER", "SERVE_PROXY", "SERVE_GRPC_PROXY"),
+            while_bf16=_profile_replica))
         dp, n = res["served"]["dataplane"], res["requests"]
         want_items = res["tokens"] + 2 * n  # a stream's meta event and summary
         print(f"[dataplane] the channel carried it all: the replica answered "
@@ -2379,6 +2939,13 @@ def phase_dataplane(card: str, engine_serve: dict, plane: dict) -> dict:
         res["rpc_decode_tok_per_s"] = plane["decode_tok_per_s"]
         res["rpc_ttft_p50_s"], res["rpc_ttft_p95_s"] = plane["ttft_p50_s"], plane["ttft_p95_s"]
         res["rpc_wall_s"] = plane["wall_s"]
+        t_obs = time.perf_counter()
+        res["replica_profile"] = _hold_replica_profile(card, res.pop("replica_capture"))
+        res["traced_request"] = _traced_request(card, refs)
+        print(f"[timing] dataplane profile and traced request: "
+              f"{time.perf_counter() - t_obs + res['replica_profile']['capture_s']:.1f} s "
+              f"(the capture's {res['replica_profile']['capture_s']:.1f} s ran beside the mix)",
+              flush=True)
         rt_serve.delete("llm_bf16")
         res["dag"] = _dag_gpu_stage(card)
     finally:
@@ -4785,6 +5352,7 @@ def main() -> int:
     timed("mlp", phase_mlp, card)
     timed("moe", phase_moe, card)
     runtime = timed("runtime", phase_runtime, card, train_parity, train)
+    fwd_rec["in_client_pool_launches"] = sum(runtime["client"]["launches"])
     in_framework = dict(zip(("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"),
                             runtime["trainer"]["launches"]))
     for rec in train_recs:

@@ -19,7 +19,10 @@ Ported so far:
   prefill attention on the flash-attention forward kernel;
 - the model families (``models/``) and their training steps,
   differentiable through the flash-attention kernels
-  (``ops/flash_attention.py``).
+  (``ops/flash_attention.py``);
+- ``util``: the state API and the cluster profiler (``util.state``),
+  ``ActorPool``, ``Queue``, the multiprocessing, joblib and dask shims,
+  and Ray Client (``init("ray://host:port")``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The runtime itself never imports torch: device work happens in library
@@ -94,10 +97,46 @@ def init(
     from ray_tpu_torch._private import node as node_mod
 
     if address and address.startswith("ray://"):
-        raise NotImplementedError(
-            "ray_tpu_torch has no Ray Client (ray://) yet: util/client waits "
-            "for ROADMAP Queue A item 6"
-        )
+        # Remote-driver (Ray Client) mode: swap in a ClientWorker that
+        # proxies the Worker interface to the cluster's client server —
+        # the rest of the API layer works unchanged on top of it
+        # (reference: util/client/ARCHITECTURE.md).  namespace and
+        # runtime_env are honored (packaged client-side); cluster-shaping
+        # args are meaningless from a remote driver and rejected rather
+        # than silently dropped.
+        unsupported = {
+            "num_cpus": num_cpus,
+            "num_gpus": num_gpus,  # the port's resource (the reference's num_tpus)
+            "resources": resources,
+            "object_store_memory": object_store_memory,
+            "_system_config": _system_config,
+            # Tenant identity binds at the client server's driver
+            # connection; a remote driver can't claim one yet.
+            "tenant": tenant,
+            "priority": priority,
+        }
+        bad = sorted(k for k, v in unsupported.items() if v is not None)
+        bad += sorted(kwargs)  # unknown args, even explicit None
+        if bad:
+            raise ValueError(
+                f"init(address='ray://...') does not support {bad}: a remote "
+                "driver cannot reconfigure the cluster it connects to"
+            )
+        # log_to_driver: there is no log streaming over ray://, so False
+        # (the only honorable value) is accepted as a no-op.
+        with _init_lock:
+            existing = global_worker_maybe()
+            if existing is not None and existing.connected:
+                if ignore_reinit_error:
+                    return ClientContext(existing, address)
+                raise RuntimeError(
+                    "ray_tpu_torch.init() called twice; pass ignore_reinit_error=True to ignore."
+                )
+            from ray_tpu_torch.util.client import connect as _client_connect
+
+            client = _client_connect(address, namespace=namespace, runtime_env=runtime_env)
+        return ClientContext(client, address)
+
     with _init_lock:
         worker = get_global_worker()
         if worker.connected:
@@ -169,6 +208,29 @@ def init(
         return RayContext(worker)
 
 
+class ClientContext:
+    """Returned by init("ray://..."); mirrors RayContext's surface."""
+
+    def __init__(self, client, address: str):
+        self._client = client
+        self.address_info = {"address": address, "mode": "client"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        shutdown()
+
+    def disconnect(self):
+        self._client.disconnect()
+        # Drop the shim so a later in-cluster init() builds a real Worker.
+        from ray_tpu_torch._private import worker as worker_mod
+
+        with worker_mod._worker_lock:
+            if worker_mod._global_worker is self._client:
+                worker_mod._global_worker = None
+
+
 class RayContext:
     def __init__(self, worker):
         self._worker = worker
@@ -200,6 +262,13 @@ def shutdown():
         worker = global_worker_maybe()
         if worker is not None and worker.connected:
             worker.disconnect()
+        if getattr(worker, "mode", None) == "client":
+            # Drop the client shim so a later in-cluster init() builds a
+            # real Worker.
+            from ray_tpu_torch._private import worker as worker_mod
+
+            with worker_mod._worker_lock:
+                worker_mod._global_worker = None
         if _node_processes is not None:
             _node_processes.terminate()
             _node_processes = None
@@ -326,6 +395,12 @@ def cluster_resources() -> dict:
 
 def available_resources() -> dict:
     return get_global_worker().gcs_client.call("available_resources")
+
+
+def timeline(filename: Optional[str] = None):
+    from ray_tpu_torch.util.state import timeline as _timeline
+
+    return _timeline(filename)
 
 
 # Lazy submodules: the libraries (torch imports) load on first access.

@@ -61,9 +61,13 @@ _CONFIG_DEFS: Dict[str, Any] = {
     # Max idle workers kept around per node.
     "idle_worker_pool_size": 8,
     "idle_worker_killing_time_ms": 300_000,
-    # --- dashboard and Ray Client server: not ported yet (ROADMAP Queue
-    # A item 6), so both stay off (-1); the head refuses any other value ---
+    # --- dashboard: not ported yet (ROADMAP Queue A item 6(e)), so it
+    # stays off (-1); the head refuses any other value ---
     "dashboard_port": -1,
+    # Ray Client server (ray:// remote drivers); -1 disables (reference
+    # default port 10001 — enable with RAY_TPU_TORCH_ray_client_server_port).
+    # Bind 0.0.0.0 to accept drivers from other hosts.
+    "ray_client_server_host": "127.0.0.1",
     "ray_client_server_port": -1,
     # --- memory monitor / OOM killing (reference: memory_monitor.h:52,
     # worker_killing_policy_group_by_owner.cc) ---

@@ -32,13 +32,13 @@ def main():
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s")
     if args.config:
         CONFIG.load_overrides(args.config)
-    # The dashboard (HTTP API, job submission) and the Ray Client server
-    # are not ported yet (ROADMAP Queue A item 6): both are off by
-    # default, and the head refuses to start if either is asked for.
-    if CONFIG.dashboard_port >= 0 or CONFIG.ray_client_server_port >= 0:
+    # The dashboard (HTTP API, job submission) is not ported yet (ROADMAP
+    # Queue A item 6(e)): it is off by default, and the head refuses to
+    # start if it is asked for.
+    if CONFIG.dashboard_port >= 0:
         raise SystemExit(
-            "ray_tpu_torch has no dashboard or client server yet (ROADMAP "
-            "Queue A item 6): leave dashboard_port and ray_client_server_port at -1"
+            "ray_tpu_torch has no dashboard yet (ROADMAP Queue A item 6(e)): "
+            "leave dashboard_port at -1"
         )
 
     loop = asyncio.new_event_loop()
@@ -68,6 +68,28 @@ def main():
     async def run():
         await gcs.start()
         await raylet.start()
+        client_server_proc = None
+        if CONFIG.ray_client_server_port >= 0:
+            # ray:// remote-driver endpoint, its own driver process
+            # (reference: util/client/server launched by `ray start`).
+            import subprocess
+            import sys as _sys
+
+            from ray_tpu_torch._private.node import child_env
+
+            with open(f"{args.session_dir}/logs/client_server.log", "ab") as cs_log:
+                client_server_proc = subprocess.Popen(
+                    [
+                        _sys.executable, "-m", "ray_tpu_torch.util.client.server_main",
+                        "--gcs-address", args.gcs_address,
+                        "--listen",
+                        f"tcp:{CONFIG.ray_client_server_host}:"
+                        f"{CONFIG.ray_client_server_port or 10001}",
+                    ],
+                    env=child_env(),
+                    stdout=cs_log,
+                    stderr=subprocess.STDOUT,
+                )
         from ray_tpu_torch._private.node import owner_watchdog
 
         watchdog_task = (
@@ -76,6 +98,18 @@ def main():
             else None
         )
         await stop_event.wait()
+        if client_server_proc is not None and client_server_proc.poll() is None:
+            client_server_proc.terminate()  # dies with the cluster, not after it
+            # Port: the server's driver disconnects from this GCS on its
+            # way out, and a GCS already gone parks it in the reconnect
+            # window for a minute (the reference's server outlives its
+            # head): keep serving on this loop until it has exited, and
+            # kill it after 2 s.
+            deadline = loop.time() + 2.0
+            while client_server_proc.poll() is None and loop.time() < deadline:
+                await asyncio.sleep(0.05)
+            if client_server_proc.poll() is None:
+                client_server_proc.kill()
         try:
             await asyncio.wait_for(raylet.stop(), timeout=4)
             await asyncio.wait_for(gcs.stop(), timeout=2)

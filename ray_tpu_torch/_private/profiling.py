@@ -21,8 +21,7 @@ timeline` + per-worker py-spy/memray hooks):
 Exports: ``collapse`` (collapsed-stack / flamegraph lines),
 ``speedscope`` (speedscope JSON), ``merge_records`` (fold per-process
 captures into one cluster profile keyed by actor/tenant label).
-The driver-side orchestration (the reference's ``util/profiling.py``) is
-not ported yet.
+``ray_tpu_torch.util.profiling`` is the driver-side orchestration on top.
 """
 
 from __future__ import annotations

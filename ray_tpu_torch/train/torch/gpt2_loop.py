@@ -55,7 +55,8 @@ the process id and, on ``cuda``, the card's peak memory over the steps.
 loop began (``loop``; ``torch_preloaded`` says whether unpickling the
 config had imported torch before it), had imported torch and the model
 (``imports``), its card was ready (``device``: the CUDA context made), its model and optimizer were built (``model``),
-its steps had run (``steps``) and it reported (``report``): with the
+its warm-up steps had run and the timed ones began (``timed``), its
+steps had run (``steps``) and it reported (``report``): with the
 process's start time these split a trial's start-up.
 With ``config["checkpoint"]`` rank 0 also reports the parameters.
 
@@ -231,6 +232,7 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     fa.flash_attention_dkv.launches = 0
     losses = [one_step() for _ in range(warmup)]
     sync()
+    stamps["timed"] = time.time()
     t0 = time.perf_counter()
     losses += [one_step() for _ in range(steps)]
     sync()

@@ -18,6 +18,8 @@ __all__ = [
     "remove_placement_group",
     "NodeAffinitySchedulingStrategy",
     "PlacementGroupSchedulingStrategy",
+    "ActorPool",
+    "Queue",
     "list_named_actors",
 ]
 
@@ -38,9 +40,15 @@ def list_named_actors(all_namespaces: bool = False):
 
 
 def __getattr__(name):
-    # ActorPool, Queue and util.state are not ported yet (ROADMAP Queue A
-    # item 6).
-    if name in ("collective", "metrics", "tracing"):
+    if name == "ActorPool":
+        from ray_tpu_torch.util.actor_pool import ActorPool
+
+        return ActorPool
+    if name == "Queue":
+        from ray_tpu_torch.util.queue import Queue
+
+        return Queue
+    if name in ("collective", "state", "metrics", "queue", "tracing"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.util.{name}")

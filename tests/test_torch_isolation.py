@@ -67,6 +67,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "ray_tpu_torch.train.torch.config", "ray_tpu_torch.train.torch.gpt2_loop",
                 "ray_tpu_torch.util.collective.cpu_group",
                 *_SERVE_PLANE_MODULES, "ray_tpu_torch.serve.llm.deployment",
+                "ray_tpu_torch.util.state", "ray_tpu_torch.util.client.worker",
+                "ray_tpu_torch.util.joblib.ray_backend", "ray_tpu_torch.util.dask.scheduler",
                 *_TUNE_RLLIB_MODULES):
         assert mod in out["imported"]
 
@@ -207,6 +209,13 @@ _RUNTIME_MODULES = (
     "ray_tpu_torch._private.gcs_main", "ray_tpu_torch._private.default_worker",
     "ray_tpu_torch._private.profiling", "ray_tpu_torch._private.serialization",
     "ray_tpu_torch._private.accelerators.gpu",
+    # util: the state API, the profiler's orchestration, the shims and the
+    # Ray Client (a ray:// driver process and the client server import them)
+    "ray_tpu_torch.util.state", "ray_tpu_torch.util.profiling",
+    "ray_tpu_torch.util.actor_pool", "ray_tpu_torch.util.queue",
+    "ray_tpu_torch.util.multiprocessing", "ray_tpu_torch.util.joblib",
+    "ray_tpu_torch.util.dask", "ray_tpu_torch.util.client",
+    "ray_tpu_torch.util.client.server", "ray_tpu_torch.util.client.server_main",
 )
 
 
