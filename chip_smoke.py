@@ -303,6 +303,24 @@ and prints no result line):
                   defaults (deter 128, 8 x 8, 16 x 16 sequences, horizon
                   10), one update held (its world-model terms 1e-4), 8
                   timed.
+23. operator    — the operator's surface: ``ray-tpu-torch start --head
+                  --num-cpus 4 --num-gpus 0`` in a subprocess (cli status
+                  shows GPU 0; the head's dashboard answers /api/version,
+                  /api/nodes and /api/cluster_status); in this process a
+                  StandardAutoscaler over FakeMultiNodeProvider (one node
+                  type, gpu_worker {"CPU": 2, "GPU": 1}, max_workers 1)
+                  under a Monitor; a job submitted through
+                  JobSubmissionClient with a runtime_env whose driver (no
+                  torch, no libcuda) runs a workflow: a num_gpus=1 step
+                  runs (c)'s batch 0 of phase 15 through GPT-2 small f32
+                  on the card, a CPU step takes the argmax.  Held: one
+                  gpu_worker launched; the job SUCCEEDED; the logits and
+                  ids equal phase 15 (c)'s forward bit for bit; 12 B1
+                  launches in the step; the runtime_env's variable seen
+                  there; workflow.resume returns the same output and the
+                  task events hold one GPU step; the idle node drained
+                  and terminated, GPU back to 0 in cluster_resources()
+                  and the dashboard; ``cli stop`` leaves no port process.
 
 Every phase's seconds are printed ([timing]) as it ends, and all of them
 with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
@@ -1983,7 +2001,9 @@ def _client_pool(card: str, port: int) -> dict:
         time.sleep(0.2)
     res = {**summary, "bad": bad, "max_abs_diff": err, "unordered_same_set": same_set,
            "actor_states": states, "gpu_after": gpu, "timeline_pool_events": len(pool_events),
-           "timeline_events": len(events)}
+           "timeline_events": len(events),
+           # this process's forward of batch 0, which phase 23's workflow holds its step to
+           "batch0": (want[0], want_ids[0])}
     print(f"[runtime] ray:// client (pid {summary['pid']}, connected in "
           f"{summary['connect_s']:.2f} s): ActorPool of two num_gpus=0.5 actors (pids "
           f"{summary['actor_pids']}, GPT-2 small f32 on the card, ready in "
@@ -2159,6 +2179,7 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
         # ActorPool of two half-card GPT-2 actors
         t_c = time.perf_counter()
         res["client"] = _client_pool(card, client_port)
+        batch0 = res["client"].pop("batch0")
         print(f"[timing] runtime (c) ray:// client pool: {time.perf_counter() - t_c:.1f} s",
               flush=True)
     finally:
@@ -2175,6 +2196,7 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
     if left:
         raise AssertionError(f"port processes still running after shutdown(): {left}")
     print("[runtime] " + json.dumps(res), flush=True)
+    res["client_batch0"] = batch0
     return res
 
 
@@ -5317,6 +5339,323 @@ def phase_rllib_rest(card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# Phase 23: the operator's surface.  A head started by the CLI serves the
+# dashboard; an autoscaler beside it brings up the GPU node that a submitted
+# job's workflow step asks for, and drains it when the job is done.
+# ----------------------------------------------------------------------
+OPERATOR_IDLE_S = 2.0  # the autoscaler's idle timeout for the GPU node
+OPERATOR_DRAIN_S = 5.0  # idle_drain_deadline_s: the notice an idle node's drain gets
+OPERATOR_MARK = "CHIP_SMOKE_JOB_MARK"  # the variable the job's runtime_env sets
+OPERATOR_NODE_TYPES = {"gpu_worker": {"resources": {"CPU": 2, "GPU": 1}}}
+OPERATOR_WORKFLOW = "gpt2_last_logits"
+# The job's driver: it imports the port and numpy and never torch.  The
+# workflow's first step asks for the GPU that only the autoscaled node has,
+# and runs phase 15 (c)'s batch 0 through GPT-2 small f32 on the card; the
+# second takes the argmax on the head's CPU.
+_JOB_SCRIPT = r"""
+import json, os, sys, time
+
+import numpy as np
+
+import ray_tpu_torch
+from ray_tpu_torch import workflow
+from ray_tpu_torch.dag import InputNode
+
+storage, out_dir, wf_id, mark = sys.argv[1:5]
+B, T, SEED, VOCAB, ROWS = (int(x) for x in sys.argv[5:10])
+t0 = time.perf_counter()
+ray_tpu_torch.init()  # the job supervisor's address, and the job's runtime_env
+workflow.init(storage)
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def gpt2_last_logits(tokens, seed):
+    t_start = time.perf_counter()
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+    model = gpt2.init_model(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    model = model.to("cuda").eval()
+    before = fa.flash_attention_fwd.launches
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(tokens).to("cuda"))[:, -1].cpu().numpy()
+    return {"logits": logits, "launches": fa.flash_attention_fwd.launches - before,
+            "n_layer": cfg.n_layer, "mark": os.environ.get(mark), "step_pid": os.getpid(),
+            "step_node": ray_tpu_torch.get_runtime_context().get_node_id(),
+            "step_device": torch.cuda.get_device_name(0), "step_s": time.perf_counter() - t_start}
+
+
+@ray_tpu_torch.remote
+def argmax(out):
+    return {**out, "ids": out["logits"].argmax(-1), "argmax_pid": os.getpid(),
+            "argmax_torch": "torch" in sys.modules,
+            "argmax_node": ray_tpu_torch.get_runtime_context().get_node_id()}
+
+
+tokens = np.random.default_rng(ROWS).integers(0, VOCAB, size=(B, T))
+with InputNode() as inp:
+    dag = argmax.bind(gpt2_last_logits.bind(inp, SEED))
+out = workflow.run(dag, workflow_id=wf_id, input_val=tokens)
+t_run = time.perf_counter()
+again = workflow.resume(wf_id)
+# stay connected until the GPU step's task event is in the GCS: a job's
+# workers go with its driver, and an event still in a worker's buffer
+# (flushed each second) goes with them
+from ray_tpu_torch.util import state
+
+deadline = time.monotonic() + 30
+while not [t for t in state.list_tasks() if t["name"].endswith(".gpt2_last_logits")]:
+    if time.monotonic() > deadline:
+        break
+    time.sleep(0.1)
+with open("/proc/self/maps") as f:
+    maps = f.read()
+np.savez(os.path.join(out_dir, "job.npz"), logits=out["logits"], ids=out["ids"],
+         resumed_logits=again["logits"], resumed_ids=again["ids"])
+summary = {k: v for k, v in out.items() if k not in ("logits", "ids")}
+summary.update(workflow_status=workflow.get_status(wf_id), libtorch="libtorch" in maps,
+               libcuda="libcuda" in maps, torch_imported="torch" in sys.modules,
+               pid=os.getpid(), workflow_s=t_run - t0)
+print("JOB_RESULT " + json.dumps(summary), flush=True)
+ray_tpu_torch.shutdown()
+"""
+
+
+def _http_json(url: str) -> object:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _cli(args: list, env: dict, cwd: str) -> str:
+    """``python -m ray_tpu_torch.scripts.cli <args>``; its output, or raise."""
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli", *args],
+                          env=env, cwd=cwd, capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} failed ({proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _status_total(out: str, name: str) -> float:
+    """A resource's total from ``cli status``'s lines (``  GPU: 0/1 available``);
+    a resource the cluster does not have is 0."""
+    for line in out.splitlines():
+        head, _, rest = line.strip().partition(": ")
+        if head == name and rest.endswith(" available"):
+            return float(rest.split("/")[1].split()[0])
+    return 0.0
+
+
+def _await(what: str, fn, timeout_s: float, period_s: float = 0.05):
+    """fn() until it returns something truthy; raise after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        out = fn()
+        if out:
+            return out
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 23: {what} within {timeout_s} s")
+        time.sleep(period_s)
+
+
+def phase_operator(card: str, runtime: dict) -> dict:
+    """(23) The operator's path: ``cli start --head`` with no GPU, the
+    dashboard's API, a FakeMultiNodeProvider autoscaler in this process, a
+    job submitted over HTTP whose workflow's GPU step makes the autoscaler
+    launch one gpu_worker node and runs GPT-2 small f32 there; the step's
+    logits held to phase 15 (c)'s forward of the same batch bit for bit,
+    its B1 launches, the job's runtime_env, a resume that runs nothing
+    again; then the node's drain and termination, and ``cli stop``."""
+    from ray_tpu_torch._private.worker import get_global_worker
+    from ray_tpu_torch.autoscaler import FakeMultiNodeProvider, Monitor, StandardAutoscaler
+    from ray_tpu_torch.dashboard import JobSubmissionClient
+    from ray_tpu_torch.util import state
+
+    t0 = time.perf_counter()
+    want_logits, want_ids = runtime["client_batch0"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    marks = {}
+
+    class TimedProvider(FakeMultiNodeProvider):
+        """The fake provider, with the times of its launches and terminations."""
+
+        def create_node(self, node_config, tags, count):
+            t = time.perf_counter()
+            out = super().create_node(node_config, tags, count)
+            marks.setdefault("launches", []).append((t, time.perf_counter(), dict(tags), count))
+            return out
+
+        def terminate_node(self, node_id):
+            marks.setdefault("terminations", []).append((node_id, time.perf_counter()))
+            super().terminate_node(node_id)
+
+    # the CLI's head, this process's autoscaler and the fake node it starts
+    # take the same settings: no arena prefault, a drain notice that fits the phase
+    settings = {"RAY_TPU_TORCH_arena_prefault_bytes": "0",
+                "RAY_TPU_TORCH_idle_drain_deadline_s": str(OPERATOR_DRAIN_S)}
+    saved = {k: os.environ.get(k) for k in settings}
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_op_") as tmp:
+        env = {k: v for k, v in os.environ.items() if not k.startswith("RAY_TPU_TORCH_")}
+        env.update(settings, PYTHONPATH=repo, TMPDIR=tmp)
+        out = _cli(["start", "--head", "--num-cpus", "4", "--num-gpus", "0"], env, tmp)
+        gcs = out.split("started head: gcs=", 1)[1].split()[0]
+        monitor = None
+        try:
+            os.environ.update(settings)
+            head_gpus = _status_total(_cli(["status"], env, tmp), "GPU")
+            ctx = ray_tpu_torch.init(address=gcs)
+            url = ctx.dashboard_url
+            version = _http_json(url + "/api/version")
+            nodes0 = _http_json(url + "/api/nodes")
+            status0 = _http_json(url + "/api/cluster_status")
+            res["head"] = {"gcs": gcs, "dashboard_url": url, "cli_status_gpu": head_gpus,
+                           "version": version, "nodes": len(nodes0),
+                           "dashboard_gpu": status0["resources_total"].get("GPU", 0.0)}
+            print(f"[operator] cli start --head --num-cpus 4 --num-gpus 0: cli status GPU "
+                  f"{head_gpus}; dashboard {url}: /api/version {version}, /api/nodes "
+                  f"{len(nodes0)} node(s), /api/cluster_status {status0['resources_total']}",
+                  flush=True)
+            if (head_gpus != 0.0 or version.get("version") != "ray_tpu_torch"
+                    or len(nodes0) != 1 or res["head"]["dashboard_gpu"] != 0.0):
+                raise AssertionError(f"the CLI's head or its dashboard: {res['head']}")
+
+            worker = get_global_worker()
+            provider = TimedProvider({"gcs_address": gcs, "session_dir": ctx["session_dir"]})
+            scaler = StandardAutoscaler(provider, OPERATOR_NODE_TYPES, max_workers=1,
+                                        idle_timeout_s=OPERATOR_IDLE_S,
+                                        gcs_client=worker.gcs_client)
+            monitor = Monitor(scaler, interval_s=0.5)
+            monitor.start()
+
+            job_dir = os.path.join(tmp, "job")
+            os.makedirs(job_dir)
+            script = os.path.join(job_dir, "job.py")
+            with open(script, "w") as f:
+                f.write(_JOB_SCRIPT)
+            entry = " ".join([sys.executable, script, os.path.join(tmp, "workflows"), job_dir,
+                              OPERATOR_WORKFLOW, OPERATOR_MARK,
+                              *(str(x) for x in (CLIENT_B, CLIENT_T, CLIENT_SEED,
+                                                 PROMPT_VOCAB, 200))])
+            client = JobSubmissionClient(url)
+            mark_value = f"runtime_env of {os.getpid()}"
+            t_submit = time.perf_counter()
+            sid = client.submit_job(entrypoint=entry,
+                                    runtime_env={"env_vars": {OPERATOR_MARK: mark_value}})
+            job_status = client.wait_until_finished(sid, timeout=600, poll_s=0.1)
+            t_done = time.perf_counter()
+            logs = client.get_job_logs(sid)
+            if job_status != "SUCCEEDED":
+                raise AssertionError(f"the job ended {job_status}: {logs[-4000:]}")
+            line = [ln for ln in logs.splitlines() if ln.startswith("JOB_RESULT ")]
+            if not line:
+                raise AssertionError(f"the job printed no result: {logs[-4000:]}")
+            job = json.loads(line[-1][len("JOB_RESULT "):])
+            got = np.load(os.path.join(job_dir, "job.npz"))
+
+            # the GPU node: launched once, ready, then drained and terminated
+            _await("the idle GPU node was never terminated",
+                   lambda: scaler.num_terminations and not provider.non_terminated_nodes({}),
+                   timeout_s=60)
+            t_gone = time.perf_counter()
+
+            def gpu_back():
+                gpu = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+                dash = _http_json(url + "/api/cluster_status")["resources_total"].get("GPU", 0.0)
+                return (gpu, dash) if gpu == 0.0 and dash == 0.0 else None
+
+            _await("the cluster's GPU did not go back to 0", gpu_back, timeout_s=30, period_s=0.2)
+            job_info = _http_json(f"{url}/api/jobs/{sid}")
+            events = state.list_tasks()
+            steps = [t for t in events if t.get("name", "").endswith(".gpt2_last_logits")]
+            step_ids = sorted({t.get("task_id") for t in steps})
+            step_nodes = sorted({t.get("node_id") for t in steps})
+            (launch_t0, launch_t1, launch_tags, launch_count), = marks["launches"]
+            res["autoscaler"] = {"launches": scaler.num_launches, "drains": scaler.num_drains,
+                                 "terminations": scaler.num_terminations,
+                                 "launched": [(m[2], m[3]) for m in marks["launches"]],
+                                 "submit_to_launch_s": launch_t0 - t_submit,
+                                 "launch_to_ready_s": launch_t1 - launch_t0,
+                                 "done_to_terminated_s": marks["terminations"][0][1] - t_done,
+                                 "terminated_to_gpu_0_s": time.perf_counter() - t_gone}
+            res["job"] = {**job, "submission_id": sid, "status": job_status,
+                          "dashboard_status": job_info["status"], "wall_s": t_done - t_submit,
+                          "gpu_step_task_ids": step_ids, "gpu_step_events": len(steps),
+                          "gpu_step_event_nodes": step_nodes,
+                          "task_events": sorted({(t.get("name"), t.get("state")) for t in events})}
+        finally:
+            if monitor is not None:
+                monitor.stop()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            ray_tpu_torch.shutdown()
+            stop_out = _cli(["stop"], env, tmp)
+        res["processes_left"] = _wait_no_port_processes("operator")
+        res["cli_stop"] = stop_out.strip()
+
+    logits, ids = got["logits"], got["ids"]
+    same = bool(np.array_equal(logits, want_logits) and np.array_equal(ids, want_ids))
+    err = float(np.abs(logits.astype(np.float64) - want_logits).max())
+    resumed = bool(np.array_equal(got["resumed_logits"], logits)
+                   and np.array_equal(got["resumed_ids"], ids))
+    want_launches = job["n_layer"]
+    a = res["autoscaler"]
+    res.update(same_as_phase_15c=same, max_abs_diff=err, resumed_same=resumed,
+               launches=job["launches"], seconds=time.perf_counter() - t0)
+    print(f"[operator] job {sid} (driver pid {job['pid']}, no torch: libtorch {job['libtorch']}, "
+          f"libcuda {job['libcuda']}) {job_status} in {res['job']['wall_s']:.2f} s, workflow "
+          f"{job['workflow_status']}: GPU step on node {job['step_node'][:12]} ({job['step_device']}, pid "
+          f"{job['step_pid']}, {job['step_s']:.2f} s), argmax on node {job['argmax_node'][:12]} "
+          f"(torch imported {job['argmax_torch']}); logits equal to phase 15 (c)'s forward of "
+          f"batch 0 bit for bit {same} (max |diff| {err:.3e}), ids equal too; B1 launches in "
+          f"the step {job['launches']} (want {want_launches}); the runtime_env's "
+          f"{OPERATOR_MARK} seen in the step {job['mark'] == mark_value}; resume returned the "
+          f"same output {resumed}, the GPU step's task ids {step_ids} — {card}", flush=True)
+    print(f"[operator] autoscaler: launches {a['launches']} {a['launched']}, "
+          f"{a['submit_to_launch_s']:.2f} s from submit to launch, launch to ready "
+          f"{a['launch_to_ready_s']:.2f} s, drains {a['drains']}, terminations "
+          f"{a['terminations']}, job done to node terminated {a['done_to_terminated_s']:.2f} s, "
+          f"then GPU 0 in the cluster and the dashboard after "
+          f"{a['terminated_to_gpu_0_s']:.2f} s; /api/jobs/{sid} {res['job']['dashboard_status']}; "
+          f"cli stop: {res['cli_stop']!r}, port processes left {sorted(res['processes_left'])}; "
+          f"phase {res['seconds']:.1f} s — {card}", flush=True)
+    if not same or err != 0.0:
+        raise AssertionError(f"the workflow's logits differ from phase 15 (c)'s: {err}")
+    if job["launches"] != want_launches:
+        raise AssertionError(f"the GPU step launched B1 {job['launches']} times, "
+                             f"want {want_launches}")
+    if job["mark"] != mark_value:
+        raise AssertionError(f"the job's runtime_env did not reach its step: {job['mark']!r}")
+    if job["libtorch"] or job["libcuda"] or job["torch_imported"] or job["argmax_torch"]:
+        raise AssertionError(f"the job's driver or its CPU step loaded torch: {job}")
+    if job["step_node"] == job["argmax_node"]:
+        raise AssertionError("the GPU step ran on the head, which has no GPU")
+    if (not resumed or job["workflow_status"] != "SUCCESSFUL" or len(step_ids) != 1
+            or step_nodes != [job["step_node"]]):
+        raise AssertionError(f"resume re-ran the GPU step or changed the output: {step_ids}, "
+                             f"task events {res['job']['task_events']}")
+    if (a["launches"] != 1 or a["launched"] != [({"node-kind": "worker",
+                                                   "node-type": "gpu_worker"}, 1)]
+            or a["drains"] != 1 or a["terminations"] != 1):
+        raise AssertionError(f"the autoscaler did not launch, drain and terminate one "
+                             f"gpu_worker node: {a}")
+    if res["job"]["dashboard_status"] != "SUCCEEDED":
+        raise AssertionError(f"/api/jobs/{sid}: {res['job']['dashboard_status']}")
+    print("[operator] " + json.dumps(res, default=str), flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
@@ -5368,6 +5707,8 @@ def main() -> int:
     pipeline = timed("pipeline", phase_pipeline, card, data)
     tune_rllib = timed("tune and rllib", phase_tune_rllib, card, train)
     timed("rllib rest", phase_rllib_rest, card)
+    operator = timed("operator", phase_operator, card, runtime)
+    fwd_rec["in_workflow_launches"] = operator["launches"]
     sweep = tune_rllib["sweep"]["trials"]
     for i, rec in enumerate(train_recs):
         rec["in_tune_trial_launches"] = {str(lr): t["launches"][i] for lr, t in sweep.items()}

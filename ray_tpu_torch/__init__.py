@@ -23,6 +23,9 @@ Ported so far:
 - ``util``: the state API and the cluster profiler (``util.state``),
   ``ActorPool``, ``Queue``, the multiprocessing, joblib and dask shims,
   and Ray Client (``init("ray://host:port")``).
+- the operator's surface: the dashboard (HTTP API, job submission) in
+  the head, the ``ray-tpu-torch`` CLI (``scripts/cli.py``), the v1 and
+  v2 autoscalers with ``FakeMultiNodeProvider``, and ``workflow``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The runtime itself never imports torch: device work happens in library
@@ -32,6 +35,7 @@ code (``train``, ``models``, ``ops``) inside worker processes.
 from __future__ import annotations
 
 import atexit
+import json
 import os
 import threading
 from typing import Any, List, Optional, Sequence, Union
@@ -156,8 +160,8 @@ def init(
                     address = f.read().strip()
             except OSError:
                 raise ConnectionError(
-                    "address='auto' but no running cluster found: start one by "
-                    "calling init() with no address."
+                    "address='auto' but no running cluster found. Start one with "
+                    "`ray-tpu-torch start --head` or call init() with no address."
                 )
 
         if address is None:
@@ -178,6 +182,13 @@ def init(
         # upload_package_if_needed).
         from ray_tpu_torch._private import runtime_env as _renv
 
+        # A submitted job's runtime_env comes from its supervisor (the
+        # dashboard's job manager).  Port: the reference writes it to the
+        # driver's environment and never reads it back
+        # (ray_tpu/dashboard/job_manager.py:110-111), so its tasks ran
+        # without it.
+        if runtime_env is None and os.environ.get("RAY_TPU_TORCH_JOB_RUNTIME_ENV"):
+            runtime_env = json.loads(os.environ["RAY_TPU_TORCH_JOB_RUNTIME_ENV"])
         norm_env, _uploads = _renv.prepare(runtime_env)
         # Multi-tenant job plane: every job carries a tenant (isolation/
         # accounting domain) and a priority class.  The job-submission
@@ -405,7 +416,7 @@ def timeline(filename: Optional[str] = None):
 
 # Lazy submodules: the libraries (torch imports) load on first access.
 _LAZY_SUBMODULES = ("util", "train", "serve", "dag", "models", "ops", "air", "experimental", "data",
-                    "tune", "rllib")
+                    "tune", "rllib", "workflow", "autoscaler")
 
 
 def __getattr__(name):

@@ -61,9 +61,10 @@ _CONFIG_DEFS: Dict[str, Any] = {
     # Max idle workers kept around per node.
     "idle_worker_pool_size": 8,
     "idle_worker_killing_time_ms": 300_000,
-    # --- dashboard: not ported yet (ROADMAP Queue A item 6(e)), so it
-    # stays off (-1); the head refuses any other value ---
-    "dashboard_port": -1,
+    # --- dashboard (reference: dashboard/dashboard.py; -1 disables,
+    # 0 picks a free port) ---
+    "dashboard_host": "127.0.0.1",
+    "dashboard_port": 0,
     # Ray Client server (ray:// remote drivers); -1 disables (reference
     # default port 10001 — enable with RAY_TPU_TORCH_ray_client_server_port).
     # Bind 0.0.0.0 to accept drivers from other hosts.

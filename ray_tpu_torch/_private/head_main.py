@@ -32,14 +32,6 @@ def main():
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s")
     if args.config:
         CONFIG.load_overrides(args.config)
-    # The dashboard (HTTP API, job submission) is not ported yet (ROADMAP
-    # Queue A item 6(e)): it is off by default, and the head refuses to
-    # start if it is asked for.
-    if CONFIG.dashboard_port >= 0:
-        raise SystemExit(
-            "ray_tpu_torch has no dashboard yet (ROADMAP Queue A item 6(e)): "
-            "leave dashboard_port at -1"
-        )
 
     loop = asyncio.new_event_loop()
     asyncio.set_event_loop(loop)
@@ -68,6 +60,24 @@ def main():
     async def run():
         await gcs.start()
         await raylet.start()
+        if CONFIG.dashboard_port >= 0:
+            # HTTP API + job submission, in-process (reference runs
+            # dashboard.py as its own process; same routes).
+            try:
+                from ray_tpu_torch.dashboard import start_dashboard
+
+                server = start_dashboard(
+                    args.gcs_address,
+                    args.session_dir,
+                    host=CONFIG.dashboard_host,
+                    port=CONFIG.dashboard_port,
+                )
+                if server is not None:
+                    gcs.session_info["dashboard_url"] = (
+                        f"http://{server.server_address[0]}:{server.server_address[1]}"
+                    )
+            except Exception:
+                logging.getLogger(__name__).exception("dashboard failed to start")
         client_server_proc = None
         if CONFIG.ray_client_server_port >= 0:
             # ray:// remote-driver endpoint, its own driver process

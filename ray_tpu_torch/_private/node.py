@@ -318,7 +318,7 @@ async def owner_watchdog(owner_pid: int, stop_event):
     """Tear the cluster down if its owner process dies without a clean
     shutdown (SIGKILL skips atexit).  Shared by head_main/raylet_main;
     callers must hold a strong reference to the task.  owner_pid <= 0
-    means detached (`ray-tpu start`): no watchdog."""
+    means detached (`ray-tpu-torch start`): no watchdog."""
     import asyncio
 
     if owner_pid <= 0:

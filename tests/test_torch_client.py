@@ -227,29 +227,6 @@ assert ray_tpu_torch.get(g.ping.remote()) == 1
     raise AssertionError(f"client's actors survived disconnect: {alive}")
 
 
-def test_head_refuses_a_dashboard_naming_item_6e(tmp_path):
-    """The port's head still has no dashboard: asked for one, it exits
-    before it binds anything, and its message names ROADMAP Queue A item
-    6(e).  The client server alone is allowed (the fixture above)."""
-    env = dict(
-        os.environ,
-        PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        RAY_TPU_TORCH_dashboard_port="0",
-    )
-    r = subprocess.run(
-        [
-            sys.executable, "-m", "ray_tpu_torch._private.head_main",
-            "--session-dir", str(tmp_path), "--gcs-address", f"unix:{tmp_path}/g.sock",
-            "--raylet-address", f"unix:{tmp_path}/r.sock", "--store-dir", str(tmp_path),
-            "--resources", "{}",
-        ],
-        capture_output=True, text=True, timeout=60, env=env,
-    )
-    assert r.returncode != 0
-    assert "6(e)" in r.stderr and "dashboard" in r.stderr, r.stderr
-    assert not os.path.exists(f"{tmp_path}/g.sock")
-
-
 def test_client_server_exits_with_its_head():
     """The head's client server goes down with the head: the head keeps
     serving until the server's driver has disconnected (the reference's

@@ -14,6 +14,8 @@ import subprocess
 import sys
 import tempfile
 
+import pytest
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_EVERY_MODULE = r"""
@@ -216,6 +218,18 @@ _RUNTIME_MODULES = (
     "ray_tpu_torch.util.multiprocessing", "ray_tpu_torch.util.joblib",
     "ray_tpu_torch.util.dask", "ray_tpu_torch.util.client",
     "ray_tpu_torch.util.client.server", "ray_tpu_torch.util.client.server_main",
+    # the operator's surface: the head serves the dashboard, a job's driver
+    # runs workflows, and the CLI and the autoscaler's monitor are host
+    # processes
+    "ray_tpu_torch.workflow", "ray_tpu_torch.dashboard",
+    "ray_tpu_torch.dashboard.http_server", "ray_tpu_torch.dashboard.job_manager",
+    "ray_tpu_torch.dashboard.sdk", "ray_tpu_torch.dashboard.usage_stats",
+    "ray_tpu_torch.dashboard.grafana_dashboard_factory", "ray_tpu_torch.scripts.cli",
+    "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.autoscaler",
+    "ray_tpu_torch.autoscaler.node_provider", "ray_tpu_torch.autoscaler.command_runner",
+    "ray_tpu_torch.autoscaler.resource_demand_scheduler", "ray_tpu_torch.autoscaler.v2",
+    "ray_tpu_torch.autoscaler.v2.autoscaler", "ray_tpu_torch.autoscaler.v2.instance_manager",
+    "ray_tpu_torch.autoscaler.v2.sdk",
 )
 
 
@@ -229,6 +243,19 @@ def test_runtime_modules_do_not_import_torch():
                           text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO_ROOT))
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_autoscaler_has_no_tpu_provider_and_names_item_7():
+    """The TPU-slice provider needs live cloud APIs: the port's autoscaler
+    does not export it, and asking for it says where it stands."""
+    import ray_tpu_torch.autoscaler as autoscaler
+
+    for name in ("TPUNodeProvider", "MockTpuClient", "GceTpuClient", "slice_resources"):
+        assert name not in autoscaler.__all__
+        with pytest.raises(ImportError, match=r"ROADMAP Queue A item 7"):
+            exec(f"from ray_tpu_torch.autoscaler import {name}", {})
+    with pytest.raises(AttributeError):
+        autoscaler.NoSuchName  # noqa: B018
 
 
 def test_serve_control_plane_imports_no_torch():

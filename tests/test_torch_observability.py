@@ -1,12 +1,14 @@
 """The port's cluster flight recorder: cross-process span aggregation,
-the merged Perfetto timeline, the live Prometheus exposition and the
-instrumentation overhead guard (copies of the cluster tests of
+the merged Perfetto timeline, the live Prometheus exposition, the
+instrumentation overhead guard and the dashboard's trace, timeline and
+chaos endpoints (copies of the cluster tests of
 tests/test_observability.py; the ones that need no cluster are in
 tests/test_torch_observability_local.py; no JAX.  Reference:
 python/ray/tests/test_metrics_agent.py, `ray timeline`)."""
 
 import json
 import time
+from urllib import request as urlrequest
 
 import pytest
 from test_torch_observability_local import _parse_exposition
@@ -170,3 +172,44 @@ def test_instrumentation_overhead_budget(obs):
         f"(per-event {per_event_s * 1e6:.2f}us, per-task {per_task_s * 1e3:.2f}ms)"
     )
 
+
+
+# ----------------------------------------------------------------------
+# dashboard endpoints
+# ----------------------------------------------------------------------
+def test_dashboard_observability_endpoints(obs):
+    url = obs.dashboard_url
+    assert url
+
+    @ray_tpu_torch.remote
+    def ping():
+        return 1
+
+    with tracing.start_span("dash-root"):
+        ray_tpu_torch.get([ping.remote() for _ in range(3)])
+    tracing.flush()
+
+    def fetch():
+        with urlrequest.urlopen(url + "/api/traces", timeout=10) as r:
+            traces = json.loads(r.read())
+        if any(t["span_count"] >= 2 for t in traces):
+            return traces
+        return None
+
+    traces = _poll(fetch, timeout=15)
+    assert traces, "/api/traces never showed a multi-span trace"
+
+    req = urlrequest.urlopen(url + "/api/timeline", timeout=10)
+    assert "attachment" in req.headers.get("Content-Disposition", "")
+    tl = json.loads(req.read())
+    assert any(e.get("cat") == "span" for e in tl)
+    assert any(e.get("ph") == "M" for e in tl)  # perfetto process names
+
+    with urlrequest.urlopen(url + "/api/chaos", timeout=10) as r:
+        chaos = json.loads(r.read())
+    # no chaos configured: endpoint reports inactive but well-formed views
+    assert chaos["active"] is False
+    assert chaos["gcs"] is not None and chaos["gcs"]["rules"] == []
+    assert isinstance(chaos["nodes"], dict) and len(chaos["nodes"]) >= 1
+    for view in chaos["nodes"].values():
+        assert "rules" in view and "spec" in view

@@ -3,9 +3,9 @@ build, config-driven deploy of a multi-deployment app, replica-count
 flips via re-deploy — copies of ``tests/test_serve_config.py`` over the
 port's runtime (reference: python/ray/serve/schema.py +
 serve/scripts.py; test model: serve/tests/test_config_files + test_cli).
-The port has no CLI yet (``scripts/``, ROADMAP Queue A item 6), so the
-last test writes the config the way ``serve build -o`` does, through
-the schema calls the CLI makes.
+``test_serve_build_writes_yaml`` writes the config through the schema
+calls the CLI makes; ``test_cli_serve_build_writes_yaml`` runs the
+port's CLI (``ray-tpu-torch serve build -o``).
 """
 
 import sys
@@ -172,6 +172,19 @@ def test_serve_build_writes_yaml(app_module, tmp_path):
     ServeDeploySchema(
         applications=[build_app_schema(f"{app_module}:app", name="default")]
     ).to_yaml(out)
+    schema = ServeDeploySchema.from_file(out)
+    assert {d.name for d in schema.applications[0].deployments} == {
+        "Preprocess",
+        "Ingress",
+    }
+
+
+def test_cli_serve_build_writes_yaml(app_module, tmp_path):
+    from ray_tpu_torch.scripts.cli import main
+
+    out = str(tmp_path / "built.yaml")
+    rc = main(["serve", "build", f"{app_module}:app", "-o", out])
+    assert rc == 0
     schema = ServeDeploySchema.from_file(out)
     assert {d.name for d in schema.applications[0].deployments} == {
         "Preprocess",
