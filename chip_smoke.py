@@ -321,6 +321,34 @@ and prints no result line):
                   task events hold one GPU step; the idle node drained
                   and terminated, GPU back to 0 in cluster_resources()
                   and the dashboard; ``cli stop`` leaves no port process.
+24. preemption  — (a) a cluster_utils.Cluster of a head {"num_cpus": 1,
+                  "num_gpus": 0} and two nodes {"num_cpus": 2, "num_gpus":
+                  1} (both count the one card); TorchTrainer with one GPU
+                  worker runs gpt2_loop's drain-aware option at phase 9's
+                  configuration for 8 steps, FailureConfig(max_failures=0):
+                  a periodic checkpoint at step 3 (the step, the weights and
+                  AdamW's state), a driver thread drains the rank's node
+                  (PREEMPTION, deadline 60 s) once step 5 is reported, the
+                  loop checkpoints at the notice and the trainer restarts
+                  the rank on the other node from it.  Held: one drain,
+                  result step 8, resumed_from >= 5, the resumed steps on the
+                  other node, every step's loss equal to phase 9's of that
+                  step to 1e-5 relative, B1 = B2 = B3 = 12 launches a step
+                  in each worker, the GPU free again after the drained node
+                  is killed, no port process after shutdown(); printed: the
+                  notice to the written checkpoint, its bytes, the notice to
+                  the first resumed step.  (b) beside (a), from a driver
+                  process of its own (no torch): a GCS spawned alone and one
+                  raylet {"CPU": 2, "GPU": 1}; a num_gpus=1 actor holds
+                  GPT-2 small f32 from phase 15 (c)'s seed and answers its
+                  batch 0; the GCS is killed, the actor answers during the
+                  outage, a new function's first call blocks until a new
+                  GCS on the same session directory is up, the actor
+                  answers again.  Held: the three answers' logits and ids
+                  equal phase 15 (c)'s forward bit for bit, 12 B1 launches
+                  each, one actor pid, ALIVE in the new GCS, the GPU free
+                  after the actor, no port process left; printed: the
+                  outage and the restart to the blocked call's return.
 
 Every phase's seconds are printed ([timing]) as it ends, and all of them
 with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
@@ -3688,6 +3716,24 @@ def _pp_main_path(card: str, data: dict) -> dict:
             leases["bundles"] = [[b["resources"] for b in pg["bundles"]]
                                  for pg in placement_group_table() if pg["state"] == "CREATED"]
 
+    # (a)'s drill killed and restarted a stage: its processes give their
+    # leases back as they exit, and this plane's placement group waits at
+    # most 60 s for its bundles
+    t_free = time.perf_counter()
+    while True:
+        free = {k: ray_tpu_torch.available_resources().get(k, 0.0) for k in ("CPU", "GPU")}
+        total = {k: ray_tpu_torch.cluster_resources().get(k, 0.0) for k in ("CPU", "GPU")}
+        if free == total:
+            break
+        if time.perf_counter() - t_free > 120:
+            from ray_tpu_torch.util.placement_group import placement_group_table
+
+            raise AssertionError(f"the cluster's CPU and GPU were not free 120 s after (a)'s "
+                                 f"drill: {free} of {total}, placement groups "
+                                 f"{placement_group_table()}")
+        time.sleep(0.2)
+    print(f"[pipeline] CPU and GPU free after (a): {time.perf_counter() - t_free:.2f} s",
+          flush=True)
     marks = []
     plane = PipelinePlane(_pp_program(cfg, host), PipelineConfig(
         stages=PP_STAGES, microbatches=PP_M, ring_capacity=PP_RING, step_timeout_s=120.0))
@@ -5656,6 +5702,412 @@ def phase_operator(card: str, runtime: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# Preemption: (a) a drained GPU worker's fit() resumes exactly on the other
+# node, (b) a card actor rides out a GCS restart
+# ----------------------------------------------------------------------
+# (a): phase 9's run cut to 8 steps; the periodic checkpoint at step 3, the
+# drain once step 5 is reported.  A step takes at least PREEMPT_MIN_STEP_S
+# (the reference's drill sleeps its steps), so the notice lands in the
+# loop before its last step: three steps of margin.
+PREEMPT_STEPS, PREEMPT_PERIODIC, PREEMPT_DRAIN_AT = 8, 3, 5
+PREEMPT_MIN_STEP_S = 0.5
+PREEMPT_DEADLINE_S = 60  # the drain notice's deadline, as the reference's drill gives it
+
+
+def _preempted_fit(card: str, raw: dict, cfg, device: str) -> dict:
+    """(a) TorchTrainer's drain-aware GPT-2 loop on one GPU worker of a
+    cluster with two GPU nodes (both count the machine's one card: the
+    restarted rank shares it with nothing, its predecessor gone), drained
+    once under the rank; the run resumes on the other node."""
+    import threading
+
+    from ray_tpu_torch._private.worker import get_global_worker
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.train import FailureConfig
+    from ray_tpu_torch.util import state
+
+    t0 = time.perf_counter()
+    toks = np.random.default_rng(4).integers(0, PROMPT_VOCAB, size=(TRAIN_B, TRAIN_T + 1))
+    want = (cfg.n_layer if device == "cuda" else 0,) * 3  # a CPU tensor takes the plain path
+    saved = os.environ.get("RAY_TPU_TORCH_arena_prefault_bytes")
+    os.environ["RAY_TPU_TORCH_arena_prefault_bytes"] = "0"
+    cluster = None
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preempt_") as tmp:
+        progress = os.path.join(tmp, "progress.jsonl")
+        ckpt_dirs = set(os.listdir(tempfile.gettempdir()))
+        try:
+            cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 1, "num_gpus": 0})
+            handles = [cluster.add_node(num_cpus=2, num_gpus=1) for _ in range(2)]
+            cluster.wait_for_nodes()
+            ray_tpu_torch.init(address=cluster.address)
+            gcs = get_global_worker().gcs_client
+            drains, stop = [], threading.Event()
+
+            def drainer():
+                """Drain the node that hosts the rank once step >= 5 is reported."""
+                while not stop.is_set():
+                    try:
+                        with open(progress) as f:
+                            last = json.loads(f.read().splitlines()[-1])
+                    except (OSError, ValueError, IndexError):  # not written yet, or mid-line
+                        last = None
+                    if last is not None and last["step"] >= PREEMPT_DRAIN_AT:
+                        t = time.time()
+                        reply = gcs.call("drain_node", {
+                            "node_id": bytes.fromhex(last["node_id"]), "reason": "PREEMPTION",
+                            "deadline_s": PREEMPT_DEADLINE_S})
+                        drains.append({"node_id": last["node_id"], "at_step": last["step"],
+                                       "t": t, "reply": reply})
+                        return
+                    time.sleep(0.02)
+
+            thread = threading.Thread(target=drainer, daemon=True, name="chip-smoke-drainer")
+            thread.start()
+            t_fit = time.perf_counter()
+            try:
+                result = TorchTrainer(
+                    train_loop_per_worker,
+                    train_loop_config={
+                        "cfg": cfg, "seed": 0, "tokens": toks, "lr": TRAIN_LR, "warmup": 0,
+                        "steps": PREEMPT_STEPS, "device": device,
+                        "drain_aware": {"periodic_step": PREEMPT_PERIODIC, "progress": progress,
+                                        "min_step_s": PREEMPT_MIN_STEP_S}},
+                    scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                    run_config=RunConfig(name="preempted_fit", storage_path=tmp,
+                                         failure_config=FailureConfig(max_failures=0)),
+                ).fit()
+            finally:
+                stop.set()
+                thread.join(timeout=10)
+            fit_s = time.perf_counter() - t_fit
+            with open(progress) as f:
+                records = [json.loads(line) for line in f.read().splitlines()]
+            # each persisted checkpoint's commit: its manifest's mtime
+            commits = sorted(
+                os.path.getmtime(os.path.join(root, "MANIFEST.json"))
+                for root, _, files in os.walk(tmp) if "MANIFEST.json" in files)
+            drained = [n for n in state.list_nodes() if n.get("drain_reason") == "PREEMPTION"]
+            # the preempted machine goes away; then the card's GPU is free again
+            if len(drains) == 1:
+                victim = [h for h in handles if h.raylet_address == next(
+                    n["raylet_address"] for n in state.list_nodes()
+                    if n["node_id"] == drains[0]["node_id"])]
+                cluster.remove_node(victim[0])
+            deadline, gpu = time.monotonic() + 30, None
+            while time.monotonic() < deadline:
+                gpu = (ray_tpu_torch.available_resources().get("GPU", 0.0),
+                       ray_tpu_torch.cluster_resources().get("GPU", 0.0))
+                if gpu == (1.0, 1.0):
+                    break
+                time.sleep(0.1)
+        finally:
+            ray_tpu_torch.shutdown()
+            if cluster is not None:
+                cluster.shutdown()
+            if saved is None:
+                os.environ.pop("RAY_TPU_TORCH_arena_prefault_bytes", None)
+            else:
+                os.environ["RAY_TPU_TORCH_arena_prefault_bytes"] = saved
+            # the loop's host snapshots (Checkpoint.from_pytree's temp dirs)
+            for name in set(os.listdir(tempfile.gettempdir())) - ckpt_dirs:
+                if name.startswith("ray_tpu_torch_ckpt_"):
+                    shutil.rmtree(os.path.join(tempfile.gettempdir(), name), ignore_errors=True)
+
+    m = result.metrics
+    first = [r for r in records if r["resumed_from"] < 0]
+    second = [r for r in records if r["resumed_from"] >= 0]
+    losses = [(r["step"], r["loss"]) for r in records]
+    rels = [abs(r["loss"] - raw["losses"][r["step"] - 1]) / abs(raw["losses"][r["step"] - 1])
+            for r in records]
+    notice = drains[0] if drains else {}
+    drain_ckpt = [r for r in first if r.get("checkpoint") == "drain"]
+    res.update(
+        drains=drains, drained_nodes=[n["node_id"] for n in drained], metrics=m,
+        first_attempt=[(r["step"], r["node_id"][:12], r["pid"]) for r in first],
+        resumed_attempt=[(r["step"], r["node_id"][:12], r["pid"]) for r in second],
+        losses=losses, max_loss_rel_err_vs_phase9=max(rels) if rels else None,
+        launches_per_step=sorted({tuple(r["launches"]) for r in records}),
+        launches=dict(zip(("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"),
+                          (sum(r["launches"][i] for r in records) for i in range(3)))),
+        checkpoints=[(r["step"], r["checkpoint"], r["checkpoint_bytes"])
+                     for r in records if r.get("checkpoint")],
+        gpu_after=gpu, fit_s=fit_s)
+    if drain_ckpt and notice:
+        res["notice_to_checkpoint_s"] = drain_ckpt[0]["saved"] - notice["t"]
+        res["checkpoint_bytes"] = drain_ckpt[0]["checkpoint_bytes"]
+        # the drain's persist is synchronous, after any write still in flight
+        res["notice_to_commit_s"] = next(
+            (c - notice["t"] for c in commits if c > drain_ckpt[0]["saved"]), None)
+    if second and notice:
+        res["notice_to_resumed_step_s"] = second[0]["done"] - notice["t"]
+        res["resume_load_s"] = second[0]["load_s"]
+        # the restarted worker's start, split: its loop began (the process
+        # spawned, torch imported while the config unpickled), the model's
+        # modules imported, a CUDA context, the model and AdamW built, the
+        # checkpoint loaded, the first step done
+        tl = second[0]["timeline"]
+        marks = [("loop", tl["loop"]), ("imports", tl["imports"]), ("device", tl["device"]),
+                 ("model", tl["model"]), ("loaded", tl["loaded"]), ("step", second[0]["done"])]
+        res["resumed_start_s"] = {"notice_to_loop": tl["loop"] - notice["t"], **{
+            f"{a}_to_{b}": tb - ta for (a, ta), (b, tb) in zip(marks, marks[1:])}}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[preemption] (a) TorchTrainer.fit() of the drain-aware GPT-2 loop (phase 9's "
+          f"configuration, {PREEMPT_STEPS} steps, max_failures=0) on {device}: drains "
+          f"{[(d['node_id'][:12], d['at_step']) for d in drains]}; first attempt (step, node, "
+          f"pid) {res['first_attempt']}, resumed {res['resumed_attempt']}; checkpoints (step, "
+          f"kind, bytes) {res['checkpoints']}; result step {m.get('step')} resumed_from "
+          f"{m.get('resumed_from')}; launches a step B1/B2/B3 {res['launches_per_step']} (want "
+          f"{want}); losses vs phase 9's max rel {res['max_loss_rel_err_vs_phase9']} (tol 1e-5); "
+          f"notice to checkpoint written {res.get('notice_to_checkpoint_s')} s, committed to "
+          f"the run's storage {res.get('notice_to_commit_s')} s, to the first resumed step "
+          f"{res.get('notice_to_resumed_step_s')} s (its load {res.get('resume_load_s')} s; the "
+          f"restarted worker's start {res.get('resumed_start_s')}); GPU (available, total) "
+          f"after {gpu}; fit "
+          f"{fit_s:.1f} s, (a) {res['seconds']:.1f} s — {card}", flush=True)
+    if len(drains) != 1 or len(drained) != 1 or not drains[0]["reply"].get("accepted"):
+        raise AssertionError(f"want exactly one accepted drain: {drains}, drained {drained}")
+    if m.get("step") != PREEMPT_STEPS or m.get("resumed_from", -1) < PREEMPT_DRAIN_AT:
+        raise AssertionError(f"the run did not resume after the periodic checkpoint: {m}")
+    if not drain_ckpt or [r["step"] for r in second] != list(
+            range(m["resumed_from"] + 1, PREEMPT_STEPS + 1)):
+        raise AssertionError(f"no drain checkpoint, or the resumed steps do not follow it: "
+                             f"{records}")
+    if ({r["node_id"] for r in first} != {notice["node_id"]}
+            or {r["node_id"] for r in second} & {notice["node_id"]}):
+        raise AssertionError(f"the restarted rank did not move to the other node: {records}")
+    if [r["step"] for r in first][:PREEMPT_DRAIN_AT] != list(range(1, PREEMPT_DRAIN_AT + 1)):
+        raise AssertionError(f"the first attempt's steps: {res['first_attempt']}")
+    if res["launches_per_step"] != [want]:
+        raise AssertionError(f"launches a step {res['launches_per_step']}, want {want}")
+    # the weights, AdamW's moments and its step count, and the batch, as
+    # phase 9's run had them at that step: every loss is that step's
+    if max(rels) > 1e-5:
+        raise AssertionError(f"losses {losses} differ from phase 9's {raw['losses']}")
+    if gpu != (1.0, 1.0):
+        raise AssertionError(f"the GPU is not free after fit(): (available, total) {gpu}")
+    return res
+
+
+# (b): the GCS drill's driver, a process of its own (a driver joins one
+# cluster, and (a)'s is up meanwhile): it imports the port and numpy, never
+# torch; its actor (defined here, so pickled by value) imports torch in its
+# own process.
+_GCS_RESTART_SCRIPT = r"""
+import json, os, shutil, subprocess, sys, threading, time
+
+import numpy as np
+
+import ray_tpu_torch
+from ray_tpu_torch._private import node as node_mod
+from ray_tpu_torch._private.config import CONFIG
+from ray_tpu_torch._private.worker import get_global_worker
+
+out_dir, device, cfg = sys.argv[1], sys.argv[2], json.loads(sys.argv[7])
+B, T, SEED, VOCAB = (int(x) for x in sys.argv[3:7])
+t0 = time.perf_counter()
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+class GCSRestartActor:
+    # GPT-2 f32 from a seed, built on the CPU and moved to its device as
+    # phase 15 (c)'s driver builds it
+
+    def __init__(self, seed, cfg, device):
+        import torch
+
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.train.torch.gpt2_loop import model_config
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model = gpt2.init_model(model_config(cfg), torch.Generator().manual_seed(seed),
+                                device="cpu")
+        self.model, self.device = model.to(device).eval(), device
+
+    def forward(self, tokens):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        before = fa.flash_attention_fwd.launches
+        with torch.inference_mode():
+            logits = self.model(torch.from_numpy(tokens).to(self.device))[:, -1]
+            ids = logits.argmax(-1)
+        return {"logits": logits.cpu().numpy(), "ids": ids.cpu().numpy(),
+                "launches": fa.flash_attention_fwd.launches - before, "pid": os.getpid()}
+
+
+def spawn_gcs():
+    # the port's GCS alone in a process, killable without its raylet
+    return subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch._private.gcs_main", "--address", address,
+         "--session-dir", session_dir, "--config", CONFIG.dump()],
+        env=node_mod.child_env(), start_new_session=True)
+
+
+tokens = np.random.default_rng(200).integers(0, VOCAB, size=(B, T))
+session_dir = node_mod.new_session_dir()
+address = f"unix:{session_dir}/sockets/gcs.sock"
+procs = {"gcs": spawn_gcs()}
+res, blocked = {}, {}
+try:
+    procs["raylet"], _ = node_mod.start_worker_node(address, session_dir, num_cpus=2,
+                                                    num_gpus=1, wait=True)
+    ray_tpu_torch.init(address=address)
+    actor = GCSRestartActor.remote(SEED, cfg, device)
+    answers = [ray_tpu_torch.get(actor.forward.remote(tokens), timeout=300)]
+    t_ready = time.perf_counter()
+    time.sleep(1.0)  # the GCS's snapshot loop (every 0.5 s) persists the actor
+
+    procs["gcs"].kill()  # hard: no shutdown path runs
+    procs["gcs"].wait(timeout=10)
+    t_kill = time.perf_counter()
+    answers.append(ray_tpu_torch.get(actor.forward.remote(tokens), timeout=60))
+
+    def new_function():
+        @ray_tpu_torch.remote
+        def triple(x):
+            return x * 3
+
+        blocked["value"] = ray_tpu_torch.get(triple.remote(7), timeout=90)
+        blocked["t"] = time.perf_counter()
+
+    thread = threading.Thread(target=new_function, daemon=True)
+    thread.start()
+    time.sleep(1.0)
+    res["blocked_during_outage"] = "value" not in blocked
+    procs["gcs2"] = spawn_gcs()  # the same session directory
+    t_restart = time.perf_counter()
+    thread.join(timeout=90)
+    answers.append(ray_tpu_torch.get(actor.forward.remote(tokens), timeout=60))
+    info = get_global_worker().gcs_client.call("get_actor_info", actor._actor_id.binary())
+    ray_tpu_torch.kill(actor)
+    deadline, gpu = time.monotonic() + 30, None
+    while time.monotonic() < deadline:
+        gpu = (ray_tpu_torch.available_resources().get("GPU", 0.0),
+               ray_tpu_torch.cluster_resources().get("GPU", 0.0))
+        if gpu == (1.0, 1.0):
+            break
+        time.sleep(0.1)
+finally:
+    ray_tpu_torch.shutdown()
+    for name in ("gcs2", "gcs", "raylet"):
+        p = procs.get(name)
+        if p is not None and p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    shutil.rmtree(node_mod.default_store_root(os.path.basename(session_dir)),
+                  ignore_errors=True)
+np.savez(os.path.join(out_dir, "answers.npz"), logits=np.stack([a["logits"] for a in answers]),
+         ids=np.stack([a["ids"] for a in answers]))
+res.update(launches=[a["launches"] for a in answers], pids=[a["pid"] for a in answers],
+           actor_state=(info or {}).get("state"), blocked_value=blocked.get("value"),
+           ready_s=t_ready - t0, outage_s=t_restart - t_kill,
+           restart_to_blocked_return_s=blocked["t"] - t_restart if "t" in blocked else None,
+           gpu_after=gpu, torch_imported="torch" in sys.modules,
+           seconds=time.perf_counter() - t0)
+print("GCS_RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def _gcs_restart_start(tmp: str, device: str, actor_cfg: dict) -> subprocess.Popen:
+    """(b)'s driver in a subprocess, started while (a) runs."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "gcs_restart.py")
+    with open(script, "w") as f:
+        f.write(_GCS_RESTART_SCRIPT)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAY_TPU_TORCH_")}
+    env.update(PYTHONPATH=repo, RAY_TPU_TORCH_arena_prefault_bytes="0")
+    return subprocess.Popen(
+        [sys.executable, script, tmp, device,
+         *(str(x) for x in (CLIENT_B, CLIENT_T, CLIENT_SEED, PROMPT_VOCAB)),
+         json.dumps(actor_cfg)],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _gcs_restart_finish(card: str, proc: subprocess.Popen, tmp: str, batch0: tuple,
+                        want: int, device: str) -> dict:
+    """(b) A GCS spawned alone and one raylet {"CPU": 2, "GPU": 1}; a
+    num_gpus=1 actor holds GPT-2 small f32 from phase 15 (c)'s seed.  The
+    GCS is killed; the actor answers during the outage; a new function's
+    first call blocks until a new GCS on the same session directory is up;
+    the actor answers again, the same process, ALIVE in the new GCS."""
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    line = [ln for ln in out.splitlines() if ln.startswith("GCS_RESULT ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"(b)'s driver failed ({proc.returncode}): {out[-4000:]}")
+    res = {"card": card, **json.loads(line[-1][len("GCS_RESULT "):])}
+    got = np.load(os.path.join(tmp, "answers.npz"))
+    want_logits, want_ids = batch0
+    same = [bool(np.array_equal(got["logits"][i], want_logits)
+                 and np.array_equal(got["ids"][i], want_ids)) for i in range(3)]
+    res["answers_equal_phase_15c"] = same
+    print(f"[preemption] (b) GCS killed under a num_gpus=1 actor (GPT-2 small f32 on {device}, "
+          f"pids {res['pids']}, ready {res['ready_s']:.1f} s after its driver started): its "
+          f"answers before, during and after the outage equal phase 15 (c)'s forward of batch 0 "
+          f"bit for bit {same}, B1 launches {res['launches']} (want {want} each); a new "
+          f"function's call blocked during the outage {res['blocked_during_outage']}, returned "
+          f"{res['blocked_value']} {res['restart_to_blocked_return_s']} s after the restart; "
+          f"outage {res['outage_s']:.2f} s; the actor {res['actor_state']} in the new GCS; GPU "
+          f"(available, total) after it went {res['gpu_after']}; torch in its driver "
+          f"{res['torch_imported']}; (b) {res['seconds']:.1f} s — {card}", flush=True)
+    if not all(same) or res["launches"] != [want] * 3:
+        raise AssertionError(f"the actor's answers across the GCS restart: {same}, launches "
+                             f"{res['launches']}")
+    if len(set(res["pids"])) != 1 or res["actor_state"] != "ALIVE":
+        raise AssertionError(f"the actor did not survive the restart as one process: "
+                             f"{res['pids']}, {res['actor_state']}")
+    if not res["blocked_during_outage"] or res["blocked_value"] != 21:
+        raise AssertionError(f"the new function's call: blocked {res['blocked_during_outage']}, "
+                             f"returned {res['blocked_value']}")
+    if res["gpu_after"] != [1.0, 1.0]:
+        raise AssertionError(f"the GPU is not free after the actor: (available, total) "
+                             f"{res['gpu_after']}")
+    return res
+
+
+def phase_preemption(card: str, raw: dict, runtime: dict, cfg=None, device: str = "cuda",
+                     actor_cfg=None) -> dict:
+    """(24) (a) a preempted fit() that resumes exactly and, beside it, (b) a
+    GCS restart under a card actor.  ``raw`` is phase 9's result,
+    ``runtime`` phase 15's (its (c) batch 0 forward); ``cfg`` (a
+    GPT2Config) and ``actor_cfg`` (gpt2_loop.model_config's dict) default
+    to phase 9's and phase 15 (c)'s GPT-2 small."""
+    t0 = time.perf_counter()
+    cfg = cfg or gpt2.GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.float32,
+                                       remat=False)
+    actor_cfg = actor_cfg or {"size": "small", "dtype": "float32", "remat": False}
+    want = model_config(actor_cfg).n_layer if device == "cuda" else 0
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gcs_") as tmp:
+        proc = _gcs_restart_start(tmp, device, actor_cfg)
+        try:
+            res["fit"] = _preempted_fit(card, raw, cfg, device)
+            print(f"[timing] preemption (a) preempted fit: {res['fit']['seconds']:.1f} s",
+                  flush=True)
+        finally:
+            res["gcs"] = _gcs_restart_finish(card, proc, tmp, runtime["client_batch0"], want,
+                                             device)
+    print(f"[timing] preemption (b) GCS restart, beside (a): {res['gcs']['seconds']:.1f} s",
+          flush=True)
+    res["processes_left"] = _wait_no_port_processes("preemption")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[preemption] phase {res['seconds']:.1f} s — {card}", flush=True)
+    print("[preemption] " + json.dumps(res, default=str), flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
@@ -5709,6 +6161,10 @@ def main() -> int:
     timed("rllib rest", phase_rllib_rest, card)
     operator = timed("operator", phase_operator, card, runtime)
     fwd_rec["in_workflow_launches"] = operator["launches"]
+    preemption = timed("preemption", phase_preemption, card, train, runtime)
+    fwd_rec["in_gcs_restart_actor_launches"] = sum(preemption["gcs"]["launches"])
+    for rec in train_recs:
+        rec["in_preempted_fit_launches"] = preemption["fit"]["launches"][rec["name"]]
     sweep = tune_rllib["sweep"]["trials"]
     for i, rec in enumerate(train_recs):
         rec["in_tune_trial_launches"] = {str(lr): t["launches"][i] for lr, t in sweep.items()}

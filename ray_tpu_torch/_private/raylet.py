@@ -119,6 +119,8 @@ class Raylet:
 
         self.resources_total = ResourceSet.of(resources)
         self.resources_available = self.resources_total.copy()
+        # SPREAD's round-robin position over this node and its peers
+        self._spread_next = 0
 
         cap = int(CONFIG.object_store_memory_cap)
         self.store = ObjectStoreCore(
@@ -1351,6 +1353,8 @@ class Raylet:
         keep local only as a last resort (the work would race the drain
         deadline)."""
         res = spec.resources
+        if spec.scheduling_strategy.kind == "SPREAD" and not self.draining:
+            return self._spread_decision(res)
         if not self.draining and res.fits_in(self.resources_available):
             return None
         best = None
@@ -1363,6 +1367,24 @@ class Raylet:
                     best_avail = score
                     best = view["raylet_address"]
         return best
+
+    def _spread_decision(self, res: ResourceSet) -> Optional[str]:
+        """SPREAD: round-robin over this node and the peers the task fits,
+        those with the resources free now first (reference:
+        spread_scheduling_policy.cc).  Returns a peer raylet address, or
+        None to keep the task here.  The hybrid policy would keep every
+        task here while this node's view still shows it free, which a
+        burst submitted before the first dispatch always sees."""
+        nodes = [(self.node_id.binary(), None, self.resources_available, self.resources_total)]
+        nodes += [(nb, view["raylet_address"], view.get("available", {}), view.get("total", {}))
+                  for nb, view in sorted(self.cluster_view.items())]
+        feasible = [n for n in nodes if res.fits_in(n[3])]
+        candidates = [n for n in feasible if res.fits_in(n[2])] or feasible
+        if not candidates:
+            return None
+        pick = candidates[self._spread_next % len(candidates)]
+        self._spread_next += 1
+        return pick[1]
 
     async def _forward_task(self, spec: TaskSpec, address: str):
         try:

@@ -31,6 +31,24 @@ from ray_tpu_torch.train._internal.worker_group import WorkerGroup
 logger = logging.getLogger(__name__)
 
 
+def _still_restorable(ckpt):
+    """``ckpt``, or the newest committed checkpoint of its chain when
+    ``ckpt`` itself no longer verifies (the retention sweep reclaimed it,
+    or its write never committed).  A chain with nothing restorable
+    leaves ``ckpt`` as it is: the ranks then fail on it, loudly."""
+    if ckpt is None:
+        return None
+    from ray_tpu_torch.train import checkpoint_plane
+    from ray_tpu_torch.train._checkpoint import Checkpoint
+
+    path = checkpoint_plane.resolve_restore(
+        preferred=ckpt.path, root=os.path.dirname(ckpt.path), rank=0
+    )
+    if path is None or os.path.abspath(path) == os.path.abspath(ckpt.path):
+        return ckpt
+    return Checkpoint.from_directory(path)
+
+
 class TrainingWorkerError(Exception):
     def __init__(self, rank: int, tb: str):
         self.rank = rank
@@ -356,6 +374,11 @@ class BackendExecutor:
                     ray_tpu_torch.get(ref, timeout=60)
                 except Exception:
                     pass
+            # The caller chose the resume checkpoint before leasing (grow)
+            # or tearing down (shrink); until the retirement above the
+            # survivors kept training, and their rank 0's retention sweep
+            # may have reclaimed that checkpoint meanwhile.
+            resume_checkpoint = _still_restorable(resume_checkpoint)
             self._refresh_meta()
             self.backend.on_start(self.worker_group, self.backend_config)
             self.backend.on_training_start(self.worker_group, self.backend_config)

@@ -59,6 +59,9 @@ its warm-up steps had run and the timed ones began (``timed``), its
 steps had run (``steps``) and it reported (``report``): with the
 process's start time these split a trial's start-up.
 With ``config["checkpoint"]`` rank 0 also reports the parameters.
+With ``config["drain_aware"]`` the loop is instead the proactive-checkpoint
+loop of ``_drain_aware``: a report and a loss a step, a checkpoint at a
+drain notice, and an exact resume from it.
 
 Runs on ``config["device"]`` (default ``cuda``); float32 there means
 float32 (no TF32).  Every worker sees all of its node's cards, so on
@@ -176,6 +179,9 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
 
     stamps["model"] = time.time()
     warmup, steps = config.get("warmup", 0), config["steps"]
+    drain_aware = config.get("drain_aware") is not None
+    if drain_aware and (plan is not None or config.get("tokens") is None):
+        raise ValueError("the drain-aware loop takes config['tokens'] and no sharding_config")
 
     def sync():
         if device.type == "cuda":
@@ -193,6 +199,9 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
 
         def next_batch():
             return local
+
+        if drain_aware:
+            return _drain_aware(config, model, optimizer, step, local, world, stamps)
     else:
         if plan is not None and world > 1:
             raise ValueError(
@@ -302,6 +311,88 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     stamps["report"] = time.time()
     metrics["timeline"] = stamps
     train.report(metrics, checkpoint=ckpt)
+
+
+def _drain_aware(config: Dict[str, Any], model, optimizer, step, batch, world: int,
+                 stamps: Dict[str, Any]) -> None:
+    """The drain-aware option (``config["drain_aware"]``, a dict): the
+    reference's proactive-checkpoint loop over the GPT-2 step.  It takes
+    ``warmup + steps`` steps of the rank's share of ``config["tokens"]``
+    and reports after each one (``step``, ``loss``, ``resumed_from``, the
+    step's B1/B2/B3 ``launches`` in this process, ``node_id``, ``pid``).
+    It checkpoints at step ``periodic_step`` (first attempt only) and once
+    at the first step boundary after ``train.get_context().drain_requested()``
+    turns true: the step, the weights and AdamW's state, as CPU tensors
+    through ``Checkpoint.from_pytree``.  Restarted with a checkpoint, it
+    loads all three and goes on with the next step, so its losses are the
+    unbroken run's.  ``min_step_s`` (default 0) is the least wall time a
+    step takes (the reference's loop sleeps its steps); ``progress``, a
+    path, gets one JSON line a step and rank with the report's metrics,
+    the step's end (``time.time()``) and, for a checkpoint, its kind, the
+    time it was written and its bytes; an attempt's first line also holds
+    the loop's start-up ``timeline`` (``stamps``, with ``loaded``: the
+    checkpoint read back)."""
+    import json
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    opts = config["drain_aware"]
+    ctx = train.get_context()
+    resume = train.get_checkpoint()
+    start, resumed_from, load_s = 0, -1, None
+    if resume is not None:
+        t = time.perf_counter()
+        state = resume.to_pytree()
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        start = resumed_from = state["step"]
+        load_s = time.perf_counter() - t
+        stamps["loaded"] = time.time()
+    node_id = ray_tpu_torch.get_runtime_context().get_node_id()
+    drain_done = resumed_from >= 0
+
+    def launches():
+        return (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+                fa.flash_attention_dkv.launches)
+
+    for s in range(start + 1, config.get("warmup", 0) + config["steps"] + 1):
+        t_step = time.perf_counter()
+        before = launches()
+        loss = step(model, batch[:, :-1], batch[:, 1:]).detach()
+        if world > 1:
+            dist.all_reduce(loss)
+            loss /= world
+        metrics = {"step": s, "loss": loss.item(), "resumed_from": resumed_from,
+                   "launches": [a - b for a, b in zip(launches(), before)],
+                   "node_id": node_id, "pid": os.getpid()}
+        record = {**metrics, "rank": ctx.get_world_rank(), "done": time.time(),
+                  "load_s": load_s}
+        if s == start + 1:
+            record["timeline"] = stamps
+        kind = None
+        if s == opts.get("periodic_step") and resumed_from < 0:
+            kind = "periodic"
+        if ctx.drain_requested() and not drain_done:
+            kind, drain_done = "drain", True  # the best-effort checkpoint at the notice
+        ckpt = None
+        if kind is not None:
+            ckpt = train.Checkpoint.from_pytree({"step": s, "model": model.state_dict(),
+                                                 "optimizer": optimizer.state_dict()})
+            record.update(checkpoint=kind, saved=time.time(), checkpoint_bytes=sum(
+                os.path.getsize(os.path.join(ckpt.path, f)) for f in os.listdir(ckpt.path)))
+        if opts.get("progress"):
+            with open(opts["progress"], "a") as f:
+                f.write(json.dumps(record) + "\n")
+        train.report(metrics, checkpoint=ckpt)
+        rest = opts.get("min_step_s", 0.0) - (time.perf_counter() - t_step)
+        if rest > 0:
+            time.sleep(rest)
 
 
 def _plan_metrics(plan, model, optimizer) -> Dict[str, Any]:

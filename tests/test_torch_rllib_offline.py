@@ -286,6 +286,50 @@ def test_cql_checkpoint_resumes_bc_phase(tmp_path):
     assert algo2.learner._num_updates == 4
 
 
+@pytest.fixture
+def ray_cluster():
+    """The port's local cluster (the conftest's fixture of this name starts
+    the JAX package's): no 2 GiB shm arena prefault, and no memory
+    monitor, which watches the whole machine the suite shares."""
+    import ray_tpu_torch
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAY_TPU_TORCH_arena_prefault_bytes", "0")
+        mp.setenv("RAY_TPU_TORCH_memory_monitor_enabled", "0")
+        ray_tpu_torch.init(num_cpus=4, ignore_reinit_error=True)
+        yield ray_tpu_torch
+        ray_tpu_torch.shutdown()
+
+
+def test_ppo_evaluation_runners(ray_cluster):
+    """evaluate() uses SEPARATE eval runners with explore=False and the
+    evaluation_interval wiring lands results under 'evaluation'
+    (reference: algorithm.py evaluate()); a copy of the JAX package's
+    test, its learner on ``cpu``."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    cfg = (
+        PPOConfig()
+        .environment("CartPole-v1")
+        .env_runners(num_env_runners=0, rollout_fragment_length=64)
+        .training(train_batch_size=128, minibatch_size=64, num_epochs=1)
+        .evaluation(evaluation_interval=2, evaluation_num_env_runners=1,
+                    evaluation_duration=3)
+        .learners(device="cpu")
+    )
+    algo = cfg.build()
+    out1 = algo.train()
+    assert "evaluation" not in out1  # iteration 1: off-interval
+    out2 = algo.train()
+    ev = out2["evaluation"]
+    assert ev["num_episodes"] == 3
+    assert np.isfinite(ev["episode_return_mean"])
+    assert ev["episode_return_min"] <= ev["episode_return_mean"] <= ev["episode_return_max"]
+    # the eval group exists and is distinct from the training group
+    assert algo._eval_runner_group is not algo.env_runner_group
+    algo.cleanup()
+
+
 def _logp_of(logits_fn):
     """A minimal target-policy surface: forward_train(obs, actions) whose
     logp comes from ``logits_fn(obs)``."""

@@ -248,6 +248,44 @@ def test_podracer_same_node_weight_fanout(ray_cluster):
     assert all(g > 0 for g in gens)
 
 
+@pytest.mark.chaos
+@pytest.mark.slow  # a copy of the reference's slow drill (its replacement runner compiled cold)
+def test_podracer_fanout_member_kill_replacement(ray_cluster):
+    """A killed fan-out cohort member's replacement comes back on a
+    DEDICATED ring (fan-out reader slots tombstone on eviction) while
+    the survivor keeps streaming from the shared ring."""
+    algo = _ppo_podracer_cfg().build()
+    try:
+        algo.train()
+        plane = algo.env_runner_group
+        cohort = [rs for rs in plane.streams if rs.fanout_index is not None]
+        assert len(cohort) == 2
+        # kill one cohort member: the replacement must NOT rejoin the
+        # shared ring (its reader slot is evicted/tombstoned) — it gets
+        # a dedicated weight channel and still receives broadcasts
+        victim = cohort[0]
+        ray_tpu_torch.kill(victim.actor)
+        time.sleep(1.0)  # death report propagates to the GCS actor table
+        for _ in range(3):
+            algo.train()
+        assert plane.replacements >= 1
+        replaced = plane.streams[victim.index]
+        assert replaced.alive
+        assert replaced.fanout_index is None
+        assert replaced.weights is not plane._fanout
+        # fragments flow from both worker indices again (the reference's
+        # generous deadline: its replacement runner paid a cold compile)
+        workers = set()
+        drv = algo._podracer
+        deadline = time.monotonic() + 120
+        while len(workers) < 2 and time.monotonic() < deadline:
+            for frag in drv.collect(2):
+                workers.add(frag["worker"])
+        assert workers == {1, 2}
+    finally:
+        algo.cleanup()
+
+
 def test_podracer_sebulba_inference_server(ray_cluster):
     """Sebulba split on the CPU: every runner's actions come from the
     shared continuous-batching inference server, and fragments carry the

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch import serve
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.serve.exceptions import RequestShedError
 from ray_tpu_torch.serve.llm import BlockManager, LLMConfig, LLMEngine
@@ -270,3 +271,53 @@ def test_engine_streams_match_jax_engine():
     assert [len(o) for o in got] == max_tokens
     assert got == want
     assert teng.bm.leak_report()["blocks_in_use"] == 0
+
+
+# ----------------------------------------------------------------------
+# @serve.batch fixes: running-loop binding + shutdown cancel (copies of the
+# reference's)
+# ----------------------------------------------------------------------
+def test_batch_queue_binds_running_loop():
+    """The batch worker must bind the loop the first call RUNS on — a
+    non-default loop here (the old get_event_loop() bound the thread
+    default and the worker never woke)."""
+
+    @serve.batch(max_batch_size=4, batch_wait_timeout_s=0.01)
+    async def doubler(items):
+        return [i * 2 for i in items]
+
+    loop = asyncio.new_event_loop()  # NOT the thread's default loop
+    try:
+        out = loop.run_until_complete(asyncio.wait_for(doubler(21), timeout=5))
+        for q in doubler._serve_batch_queues.values():
+            q.shutdown()
+        loop.run_until_complete(asyncio.sleep(0))  # let cancellation land
+    finally:
+        loop.close()
+    assert out == 42
+
+
+def test_replica_prepare_shutdown_cancels_batch_worker():
+    from ray_tpu_torch.serve._private.replica import Replica
+
+    class Batched:
+        @serve.batch(max_batch_size=4, batch_wait_timeout_s=0.01)
+        async def handle(self, items):
+            return [i + 1 for i in items]
+
+        async def __call__(self, x):
+            return await self.handle(x)
+
+    async def main():
+        rep = Replica("r1", "dep", (Batched, (), {}), None, 10)
+        out = await rep.handle_request("__call__", (1,), {})
+        assert out == 2
+        queues = rep.callable.handle._serve_batch_queues
+        workers = [q._worker for q in queues.values() if q._worker is not None]
+        assert workers and not any(w.done() for w in workers)
+        await rep.prepare_shutdown()
+        await asyncio.sleep(0)  # let cancellation propagate
+        return workers
+
+    workers = asyncio.run(main())
+    assert all(w.done() for w in workers), "batch worker task leaked past shutdown"

@@ -660,6 +660,280 @@ def test_proxy_tenant_quota_429_attributed_to_hostile_only(serve_cluster):
 
 
 # ----------------------------------------------------------------------
+# chaos drills (slow; copies of the reference's): a replica killed mid-stream
+# (tests/test_serve_llm.py), a tenant storm with a replica kill
+# ----------------------------------------------------------------------
+@pytest.mark.slow  # ~17 s replica-kill drill: runs under `-m chaos`
+@pytest.mark.chaos
+def test_chaos_replica_kill_mid_stream(serve_cluster):
+    """Kill one replica mid-load: its streams fail, streams on the
+    survivor are unaffected, new requests re-route, the controller
+    replaces the dead replica, and KV accounting on the survivor still
+    balances to zero."""
+    from ray_tpu_torch.serve import llm
+    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
+    app = llm.build_app(
+        LLMConfig(model="tiny", max_batch_size=4, num_blocks=128,
+                  block_size=8, name="llm_chaos", device="cpu"),
+        num_replicas=2,
+    )
+    handle = serve.run(app, name="llm_chaos_app")
+    controller = ray_tpu_torch.get_actor(CONTROLLER_NAME, "serve")
+
+    def replica_actors():
+        reps = ray_tpu_torch.get(controller.get_replicas.remote("llm_chaos"))
+        return {
+            r["replica_id"]: ray_tpu_torch.get_actor(r["actor_name"], "serve")
+            for r in reps
+        }
+
+    deadline = time.time() + 60
+    while time.time() < deadline and len(replica_actors()) < 2:
+        # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+        time.sleep(0.5)
+    actors = replica_actors()
+    assert len(actors) == 2
+
+    # open LONG streams (120 tokens ~ seconds of decode runway) so they
+    # are genuinely in flight at kill time; "total" is the replica's
+    # monotonic stream-request counter, so spread detection can't race
+    # completions
+    streams = []
+    counts = {rid: 0 for rid in actors}
+    deadline = time.time() + 60
+    while time.time() < deadline and (
+        len(streams) < 8 or not all(c >= 2 for c in counts.values())
+    ):
+        gen = handle.options(stream=True).generate.remote(
+            {"prompt": [1, 2, 3], "max_tokens": 120}
+        )
+        it = iter(gen)
+        first = next(it)  # established: first token arrived
+        streams.append({"it": it, "first": first, "tokens": [first["token"]]})
+        counts = {
+            rid: ray_tpu_torch.get(a.stats.remote()).get("total", 0)
+            for rid, a in actors.items()
+        }
+        if len(streams) >= 20:
+            break
+    assert all(c >= 1 for c in counts.values()), f"streams never spread: {counts}"
+
+    victim_id = max(counts, key=counts.get)
+    survivor_id = next(rid for rid in counts if rid != victim_id)
+    ray_tpu_torch.kill(actors[victim_id])
+
+    # drain every open stream: survivors complete, victim's streams fail
+    completed, failed = 0, 0
+    for s in streams:
+        try:
+            done_ev = None
+            for ev in s["it"]:
+                if "token" in ev:
+                    s["tokens"].append(ev["token"])
+                if ev.get("done"):
+                    done_ev = ev
+            assert done_ev is not None and done_ev["num_tokens"] == 120
+            completed += 1
+        except AssertionError:
+            raise
+        except Exception:  # noqa: BLE001 — the killed replica's streams
+            failed += 1
+    assert completed >= 1, "no stream survived the kill"
+    assert failed >= 1, "the killed replica's streams vanished silently?"
+
+    # new requests re-route to live replicas: the first attempt may race
+    # the stale membership, but observing the death evicts the replica
+    # from the router so retries converge immediately
+    deadline = time.time() + 30
+    out = None
+    while time.time() < deadline:
+        try:
+            out = handle.remote({"prompt": [9], "max_tokens": 4}).result(timeout=60)
+            break
+        except Exception:  # noqa: BLE001 — raced the dead replica
+            # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+            time.sleep(0.2)
+    assert out is not None and out["num_tokens"] == 4, "re-route never converged"
+
+    # the controller replaces the dead replica
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        reps = ray_tpu_torch.get(controller.get_replicas.remote("llm_chaos"))
+        if len(reps) == 2 and all(r["replica_id"] != victim_id for r in reps):
+            break
+        # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+        time.sleep(0.5)
+    assert len(reps) == 2, f"dead replica never replaced: {reps}"
+
+    # KV accounting on the survivor balances to zero
+    survivor = actors[survivor_id]
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        st = ray_tpu_torch.get(survivor.stats.remote())
+        if st.get("kv_blocks_in_use") == 0:
+            break
+        # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+        time.sleep(0.3)
+    assert st.get("kv_blocks_in_use") == 0, st.get("kv_leak_report")
+    serve.delete("llm_chaos")
+
+
+@pytest.mark.slow  # multi-replica storm with a kill: runs under `-m chaos`
+@pytest.mark.chaos
+def test_chaos_tenant_storm_with_replica_kill(serve_cluster):
+    """A hostile tenant floods at many times its quota while a victim
+    tenant streams interactively; one replica is killed mid-storm.  The
+    victim's established streams all complete (retries absorb the kill),
+    its TTFT stays bounded, every quota shed lands on the hostile tenant,
+    and KV accounting on the survivors balances to zero."""
+    from ray_tpu_torch.serve import llm
+    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
+    cfg = _tiny(
+        name="llm_storm",
+        max_batch_size=4,
+        num_blocks=128,
+        preempt_wait_s=0.1,
+        temperature=0.0,
+        tenant_weights={"hostile": 1.0, "victim": 1.0},
+        tenant_quotas={
+            "hostile": {"rate": 20, "burst": 40},
+            "victim": {"rate": 1e6, "burst": 1e6},
+        },
+    )
+    app = llm.build_app(cfg, num_replicas=2)
+    serve.run(app, name="llm_storm_app", http_port=PROXY_PORT)
+    _wait_route("/llm_storm")
+    controller = ray_tpu_torch.get_actor(CONTROLLER_NAME, "serve")
+
+    stop = threading.Event()
+    hostile = {"sent": 0, "ok": 0, "throttled": 0, "other": 0}
+
+    def hostile_flood():
+        while not stop.is_set():
+            hostile["sent"] += 1
+            try:
+                status, _, _ = _post(
+                    "/llm_storm", {"prompt": "h" * 16, "max_tokens": 16},
+                    headers={"x-serve-tenant": "hostile",
+                             "x-serve-slo": "batch"},
+                    timeout=30,
+                )
+                if status == 200:
+                    hostile["ok"] += 1
+                elif status == 429:
+                    hostile["throttled"] += 1
+                else:
+                    hostile["other"] += 1
+            except Exception:  # noqa: BLE001 — the kill may drop one
+                hostile["other"] += 1
+
+    def victim_stream_once():
+        """One interactive victim stream; returns its TTFT (s)."""
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{PROXY_PORT}/llm_storm",
+            data=json.dumps({"prompt": "v", "max_tokens": 8}).encode(),
+            headers={"Content-Type": "application/json",
+                     "x-serve-stream": "1",
+                     "x-serve-tenant": "victim",
+                     "x-serve-slo": "interactive"},
+        )
+        t0 = time.time()
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            first = resp.readline()  # established: first token event
+            ttft = time.time() - t0
+            assert first
+            body = resp.read().decode()
+        events = [json.loads(l) for l in body.splitlines() if l]
+        assert events and events[-1].get("done"), events
+        return ttft
+
+    floods = [threading.Thread(target=hostile_flood, daemon=True)
+              for _ in range(3)]
+    for t in floods:
+        t.start()
+
+    ttfts, raw_failures, completed = [], 0, 0
+    killed = False
+    try:
+        for i in range(10):
+            for attempt in range(4):
+                try:
+                    ttfts.append(victim_stream_once())
+                    completed += 1
+                    break
+                except Exception:  # noqa: BLE001 — kill races a stream
+                    raw_failures += 1
+                    # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+                    time.sleep(0.5)
+            else:
+                raise AssertionError(
+                    f"victim stream {i} failed every retry "
+                    f"(raw_failures={raw_failures})"
+                )
+            if completed == 3 and not killed:
+                reps = ray_tpu_torch.get(controller.get_replicas.remote("llm_storm"))
+                victim_rep = reps[0]
+                ray_tpu_torch.kill(
+                    ray_tpu_torch.get_actor(victim_rep["actor_name"], "serve")
+                )
+                killed = True
+    finally:
+        stop.set()
+        for t in floods:
+            t.join(timeout=30)
+
+    assert killed, "the drill never killed a replica"
+    assert completed == 10, "a victim stream was permanently lost"
+    # TTFT bound: generous for the 1-core CI box, but it proves the
+    # hostile flood and the kill never starved the interactive class
+    ttfts.sort()
+    p99 = ttfts[max(0, int(len(ttfts) * 0.99) - 1)]
+    assert p99 < 30.0, f"victim TTFT blew out under storm: {ttfts}"
+    assert hostile["throttled"] >= 5, hostile
+    assert hostile["sent"] >= 3 * hostile["ok"], (
+        f"flood too weak to prove throttling: {hostile}"
+    )
+    # shed attribution: quota sheds are the hostile tenant's alone
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{PROXY_PORT}/-/stats", timeout=10
+    ) as r:
+        stats = json.loads(r.read())
+    per_tenant = stats.get("shed_tenant", {}).get("llm_storm", {})
+    assert per_tenant.get("hostile", 0) >= 5, stats
+    assert "victim" not in per_tenant, stats
+    # the dead replica is replaced and KV balances to zero everywhere
+    deadline = time.time() + 60
+    reps = []
+    while time.time() < deadline:
+        reps = ray_tpu_torch.get(controller.get_replicas.remote("llm_storm"))
+        if len(reps) == 2:
+            break
+        # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+        time.sleep(0.5)
+    assert len(reps) == 2, f"replica never replaced: {reps}"
+    deadline = time.time() + 30
+    leaks = None
+    while time.time() < deadline:
+        leaks = {}
+        for rep in reps:
+            try:
+                st = ray_tpu_torch.get(
+                    ray_tpu_torch.get_actor(rep["actor_name"], "serve").stats.remote()
+                )
+                leaks[rep["replica_id"]] = st.get("kv_blocks_in_use", -1)
+            except Exception:  # noqa: BLE001 — replica still starting
+                leaks[rep["replica_id"]] = -1
+        if all(v == 0 for v in leaks.values()):
+            break
+        # graftlint: disable=retry-gate -- test-side condition poll/pacing: the fixed interval is the scan resolution of an assertion with its own deadline, not a retry delay
+        time.sleep(0.5)
+    assert all(v == 0 for v in leaks.values()), f"KV leak after storm: {leaks}"
+    serve.delete("llm_storm")
+
+
+# ----------------------------------------------------------------------
 # chaos drill: SIGKILL mid-preemption (own cluster, so it runs last)
 # ----------------------------------------------------------------------
 @pytest.mark.chaos
