@@ -68,7 +68,11 @@ and prints no result line):
                   loss equal to the unsharded card's bit for bit.
 15. runtime     — the port's actor runtime and trainer on the card:
                   ray_tpu_torch.init(num_cpus=4) reads GPU 1.0 from the
-                  node's device files, and no runtime process but the
+                  node's device files, and GPU-<type> 1.0 and
+                  GPU-<type>-head 1.0 with the type <family>-1 from the
+                  card's name (phase 25 (a): a clean process that imports
+                  no torch detects 1 card of that type and maps no
+                  /dev/nvidia-uvm), and no runtime process but the
                   worker holds a CUDA context; (a) a num_gpus=1 actor takes
                   phase 8's f32 GPT-2 small step and returns its loss (a
                   CPU tensor, through the object store) and its launches,
@@ -349,6 +353,21 @@ and prints no result line):
                   each, one actor pid, ALIVE in the new GCS, the GPU free
                   after the actor, no port process left; printed: the
                   outage and the restart to the blocked call's return.
+
+25. gpu slice   — inside phase 23's CLI head (before its shutdown), an
+                  AutoscalerV2 over GPUNodeProvider with MockGpuClient
+                  and launch_local_raylets, one node type of slice type
+                  h100-1 ({"CPU": 4, "GPU": 1, "GPU-h100-1-head": 1});
+                  a task asking for {"GPU-h100-1-head": 1, "GPU": 1}
+                  runs phase 23's GPT-2 small f32 step on the slice's
+                  node.  Held: one slice launched, the step on that node
+                  (not the head), its logits and ids equal phase 15 (c)'s
+                  forward bit for bit, 12 B1 launches; the slice idles
+                  out: deleted from the mock API, terminated, GPU and the
+                  slice's resources gone from cluster_resources();
+                  printed: the times of launch, ready, first result and
+                  termination.  Phase 23's [timing] line includes this
+                  phase's; the script's summary keeps them apart.
 
 Every phase's seconds are printed ([timing]) as it ends, and all of them
 with the script's total before the result lines.  The last lines are the kernels' JSON record, the card's name and power
@@ -2090,6 +2109,66 @@ class GPT2StepActor:
                 "device": torch.cuda.get_device_name(0)}
 
 
+_DETECT_SCRIPT = r"""
+import json, sys, time
+from ray_tpu_torch._private.accelerators import get_accelerator_manager
+from ray_tpu_torch._private.node import detect_resources
+G = get_accelerator_manager("GPU")
+# a node start's detection: the first in a process reads the cards' names,
+# a later one finds them cached
+t0 = time.perf_counter()
+detect_resources(num_cpus=4)
+t1 = time.perf_counter()
+detect_resources(num_cpus=4)
+t2 = time.perf_counter()
+out = {"detect_first_s": t1 - t0, "detect_later_s": t2 - t1,
+       "cards": G.get_current_node_num_accelerators(),
+       "type": G.get_current_node_accelerator_type(),
+       "additional": G.get_current_node_additional_resources(),
+       "torch": sorted(m for m in sys.modules if m.split(".")[0] == "torch")}
+with open("/proc/self/maps") as f:
+    maps = f.read()
+out.update(uvm="/dev/nvidia-uvm" in maps, libcuda="libcuda" in maps)
+print(json.dumps(out))
+"""
+
+
+def _card_type_checks(card: str, resources: dict) -> dict:
+    """(25 a) The head's card type and slice resources: a clean process that
+    imports no torch detects one card of type <family>-1, the family that of
+    torch's name for the card, and maps no /dev/nvidia-uvm (no CUDA
+    context); the head's cluster_resources() show that type's GPU-<type>
+    and GPU-<type>-head at 1.0."""
+    from ray_tpu_torch._private.accelerators.gpu import family_of
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", _DETECT_SCRIPT], cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                          text=True, timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"detection in a clean process failed: {proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    name = torch.cuda.get_device_name(0)
+    want = f"{family_of(name)}-1"
+    got.update(torch_name=name, want_type=want, seconds=time.perf_counter() - t0,
+               head={k: v for k, v in resources.items() if k.startswith("GPU")})
+    print(f"[runtime] the card's type (25 a): a clean process detects {got['cards']} card(s) of "
+          f"type {got['type']} (torch names the card {name!r}: {want}), additional resources "
+          f"{got['additional']}, torch modules {got['torch']}, /dev/nvidia-uvm mapped "
+          f"{got['uvm']}, libcuda mapped {got['libcuda']}, in {got['seconds']:.2f} s; "
+          f"detect_resources() {got['detect_first_s']:.4f} s the first time in that process, "
+          f"{got['detect_later_s']:.4f} s the next (the cards' names cached); the head's GPU "
+          f"resources {got['head']} — {card}", flush=True)
+    if (got["cards"] != 1 or got["type"] != want or got["torch"] or got["uvm"]
+            or got["additional"] != {f"GPU-{want}": 1.0, f"GPU-{want}-head": 1.0}):
+        raise AssertionError(f"the card's detection: {got}")
+    if (resources.get(f"GPU-{want}") != 1.0 or resources.get(f"GPU-{want}-head") != 1.0):
+        raise AssertionError(f"the head does not show GPU-{want} and GPU-{want}-head: "
+                             f"{resources}")
+    return got
+
+
 def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
     """The port's runtime on the card.  ``parity`` is phase 8's result (the
     driver's own f32 step), ``raw`` phase 9's (the raw training path)."""
@@ -2109,6 +2188,7 @@ def phase_runtime(card: str, parity: dict, raw: dict) -> dict:
         if resources.get("GPU") != 1.0 or torch.cuda.device_count() != 1:
             raise AssertionError(f"the raylet counts GPU {resources.get('GPU')} on a machine "
                                  f"with {torch.cuda.device_count()} card(s): {resources}")
+        res["detected"] = _card_type_checks(card, resources)
         runtime_pids = set(_port_processes())
 
         # (a) a num_gpus=1 actor: phase 8's step, its loss back through the
@@ -3902,7 +3982,7 @@ def phase_pipeline(card: str, data: dict) -> dict:
     t0 = time.perf_counter()
     res = {"card": card}
     parts = res["seconds_by_part"] = {}
-    ray_tpu_torch.init(num_cpus=4)
+    ctx = ray_tpu_torch.init(num_cpus=4)
     parts["init"] = time.perf_counter() - t0
     try:
         res["f32"] = _pp_f32_parity(card, data["rows"])
@@ -3912,6 +3992,17 @@ def phase_pipeline(card: str, data: dict) -> dict:
     finally:
         ray_tpu_torch.shutdown()
     res["processes_left"] = _wait_no_port_processes("pipeline")
+    # The stages wait on each other's rings by design (the 1F1B bubble, the
+    # kill drill's wait): the GCS's gray-failure ladder must not read that
+    # as a slow link, cordon the only node (SUSPECT) and quarantine it
+    # under its own placement group.  The head's log names every such step.
+    with open(os.path.join(ctx["session_dir"], "logs", "head.log"), errors="replace") as f:
+        ladder = [ln.strip() for ln in f if " SUSPECT (score" in ln or " QUARANTINED (" in ln]
+    res["suspect_or_quarantined"] = ladder
+    print(f"[pipeline] the node's gray-failure ladder during (a) and (b): {len(ladder)} "
+          f"line(s) of the head's log on SUSPECT or QUARANTINED — {card}", flush=True)
+    if ladder:
+        raise AssertionError(f"the pipeline's own blocked rings flapped its node: {ladder[:6]}")
     parts["shutdown"] = time.perf_counter() - t0 - sum(parts.values())
 
     # (c) the kernels at the microbatch: q/k/v views of the fused qkv
@@ -5512,14 +5603,17 @@ def _await(what: str, fn, timeout_s: float, period_s: float = 0.05):
         time.sleep(period_s)
 
 
-def phase_operator(card: str, runtime: dict) -> dict:
+def phase_operator(card: str, runtime: dict, inside=None) -> dict:
     """(23) The operator's path: ``cli start --head`` with no GPU, the
     dashboard's API, a FakeMultiNodeProvider autoscaler in this process, a
     job submitted over HTTP whose workflow's GPU step makes the autoscaler
     launch one gpu_worker node and runs GPT-2 small f32 there; the step's
     logits held to phase 15 (c)'s forward of the same batch bit for bit,
     its B1 launches, the job's runtime_env, a resume that runs nothing
-    again; then the node's drain and termination, and ``cli stop``."""
+    again; then the node's drain and termination, and ``cli stop``.
+    ``inside(gcs, session_dir)``, when given, runs in the same head after
+    those checks and before ``cli stop`` (phase 25); its result is
+    ``res["slice"]``."""
     from ray_tpu_torch._private.worker import get_global_worker
     from ray_tpu_torch.autoscaler import FakeMultiNodeProvider, Monitor, StandardAutoscaler
     from ray_tpu_torch.dashboard import JobSubmissionClient
@@ -5637,6 +5731,11 @@ def phase_operator(card: str, runtime: dict) -> dict:
                           "gpu_step_task_ids": step_ids, "gpu_step_events": len(steps),
                           "gpu_step_event_nodes": step_nodes,
                           "task_events": sorted({(t.get("name"), t.get("state")) for t in events})}
+            if inside is not None:
+                # the operator's autoscaler stops first: phase 25 brings its own
+                monitor.stop()
+                monitor = None
+                res["slice"] = inside(gcs, ctx["session_dir"])
         finally:
             if monitor is not None:
                 monitor.stop()
@@ -5699,6 +5798,170 @@ def phase_operator(card: str, runtime: dict) -> dict:
     if res["job"]["dashboard_status"] != "SUCCEEDED":
         raise AssertionError(f"/api/jobs/{sid}: {res['job']['dashboard_status']}")
     print("[operator] " + json.dumps(res, default=str), flush=True)
+    return res
+
+
+# ----------------------------------------------------------------------
+# Phase 25: a GPU slice that AutoscalerV2 brings up through GPUNodeProvider
+# in phase 23's head, runs GPT-2 small on, and frees again
+# ----------------------------------------------------------------------
+SLICE_TYPE = "h100-1"
+SLICE_NODE_TYPES = {"gpu_slice": {"resources": {"CPU": 4, "GPU": 1,
+                                                f"GPU-{SLICE_TYPE}-head": 1},
+                                  "node_config": {"accelerator_type": SLICE_TYPE}}}
+SLICE_IDLE_S = 1.0  # the autoscaler's idle timeout for the slice
+SLICE_TICK_S = 0.2  # this process drives AutoscalerV2.update() at this period
+
+
+def gpt2_slice_logits(tokens, seed):
+    """Phase 23's workflow step as a task on the slice's node: GPT-2 small
+    f32 from ``seed`` on the card, the last position's logits of
+    ``tokens`` (pickled by value: a function of ``__main__``)."""
+    t_start = time.perf_counter()
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2.GPT2Config.small(dtype=torch.float32, remat=False)
+    model = gpt2.init_model(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    model = model.to("cuda").eval()
+    before = fa.flash_attention_fwd.launches
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(tokens).to("cuda"))[:, -1].cpu().numpy()
+    return {"logits": logits, "launches": fa.flash_attention_fwd.launches - before,
+            "n_layer": cfg.n_layer, "pid": os.getpid(),
+            "node": ray_tpu_torch.get_runtime_context().get_node_id(),
+            "device": torch.cuda.get_device_name(0), "step_s": time.perf_counter() - t_start}
+
+
+def phase_gpu_slice(card: str, gcs: str, session_dir: str, runtime: dict) -> dict:
+    """(25 b) In the head of phase 23 (no GPU of its own): AutoscalerV2
+    over GPUNodeProvider with MockGpuClient and launch_local_raylets, one
+    node type of slice type h100-1; a task that asks for the slice's head
+    resource and one GPU runs phase 23's GPT-2 small f32 step; the slice
+    then idles out.  This process drives ``update()`` every SLICE_TICK_S."""
+    from ray_tpu_torch._private.worker import get_global_worker
+    from ray_tpu_torch.autoscaler import GPUNodeProvider, MockGpuClient
+    from ray_tpu_torch.autoscaler.v2 import AutoscalerV2
+
+    t0 = time.perf_counter()
+    want_logits, want_ids = runtime["client_batch0"]
+    marks = {"launches": [], "terminations": []}
+
+    class TimedProvider(GPUNodeProvider):
+        """The GPU-slice provider, with the times of its launches and
+        terminations."""
+
+        def create_node(self, node_config, tags, count):
+            marks["launches"].append(time.perf_counter())
+            return super().create_node(node_config, tags, count)
+
+        def terminate_node(self, node_id):
+            marks["terminations"].append(time.perf_counter())
+            super().terminate_node(node_id)
+
+    client = MockGpuClient()
+    provider = TimedProvider({"gpu_client": client, "launch_local_raylets": True,
+                              "gcs_address": gcs, "session_dir": session_dir},
+                             cluster_name="chip")
+    worker = get_global_worker()
+    scaler = AutoscalerV2(provider, SLICE_NODE_TYPES, max_workers=1,
+                          idle_timeout_s=SLICE_IDLE_S, gcs_client=worker.gcs_client)
+    head_node = worker.node_id.hex()
+    step = ray_tpu_torch.remote(num_gpus=1, resources={f"GPU-{SLICE_TYPE}-head": 1})(
+        gpt2_slice_logits)
+    tokens = np.random.default_rng(200).integers(0, PROMPT_VOCAB, size=(CLIENT_B, CLIENT_T))
+    t_submit = time.perf_counter()
+    ref = step.remote(tokens, CLIENT_SEED)
+    t_ready = t_running = None
+    deadline = time.monotonic() + 120
+    while True:
+        scaler.update()
+        nodes = provider.non_terminated_nodes({})
+        if t_ready is None and nodes and provider.node_tags(nodes[0])["node-status"] == "up-to-date":
+            t_ready = time.perf_counter()
+        if t_running is None and scaler.status()["counts"].get("RAY_RUNNING", 0):
+            t_running = time.perf_counter()
+        done, _ = ray_tpu_torch.wait([ref], num_returns=1, timeout=SLICE_TICK_S)
+        if done:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 25: the slice's step did not finish: "
+                                 f"{scaler.status()}")
+    out = ray_tpu_torch.get(ref)
+    t_result = time.perf_counter()
+    (slice_name,) = [s["name"] for s in client.list()]
+    during = {k: v for k, v in ray_tpu_torch.cluster_resources().items() if k.startswith(("GPU", "gpu"))}
+    # the slice idles out: drained, terminated, deleted from the API
+    deadline = time.monotonic() + 60
+    while provider.non_terminated_nodes({}) or client.list():
+        scaler.update()
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 25: the idle slice was never terminated: "
+                                 f"{scaler.status()}, {client.list()}")
+        time.sleep(SLICE_TICK_S)
+    t_gone = time.perf_counter()
+
+    def slice_resources_gone():
+        left = {k: v for k, v in ray_tpu_torch.cluster_resources().items()
+                if k.startswith(("GPU", "gpu")) and v}
+        return {"left": left} if not left else None
+
+    _await("the slice's GPU resources did not leave the cluster", slice_resources_gone,
+           timeout_s=30, period_s=SLICE_TICK_S)
+    t_free = time.perf_counter()
+    logits = out["logits"]
+    ids = logits.argmax(-1)
+    same = bool(np.array_equal(logits, want_logits) and np.array_equal(ids, want_ids))
+    err = float(np.abs(logits.astype(np.float64) - want_logits).max())
+    res = {"slice": slice_name, "type": SLICE_TYPE, "during": during,
+           "launches": len(marks["launches"]), "terminations": len(marks["terminations"]),
+           "counts": scaler.status()["counts"], "same_as_phase_15c": same, "max_abs_diff": err,
+           "b1_launches": out["launches"], "n_layer": out["n_layer"], "step_node": out["node"],
+           "head_node": head_node, "step_device": out["device"], "step_pid": out["pid"],
+           "step_s": out["step_s"],
+           "submit_to_launch_s": marks["launches"][0] - t_submit if marks["launches"] else None,
+           "launch_to_ready_s": (t_ready - marks["launches"][0]) if t_ready else None,
+           "ready_to_ray_running_s": (t_running - t_ready) if t_running and t_ready else None,
+           "submit_to_result_s": t_result - t_submit,
+           "result_to_terminated_s": (marks["terminations"][0] - t_result
+                                      if marks["terminations"] else None),
+           "terminated_to_gone_s": t_gone - marks["terminations"][0] if marks["terminations"] else None,
+           "gone_to_gpu_0_s": t_free - t_gone}
+    res["seconds"] = time.perf_counter() - t0
+
+    def _s(x):
+        return "n/a" if x is None else f"{x:.2f} s"
+
+    print(f"[gpu slice] AutoscalerV2 over GPUNodeProvider (MockGpuClient, "
+          f"launch_local_raylets): slice {slice_name} of type {SLICE_TYPE} launched "
+          f"{res['launches']} time(s), {_s(res['submit_to_launch_s'])} from submit to launch, "
+          f"launch to ready (the slice's raylet up) {_s(res['launch_to_ready_s'])}, ready to "
+          f"RAY_RUNNING {_s(res['ready_to_ray_running_s'])}; the cluster's GPU resources with "
+          f"the slice {during}; the step on node {out['node'][:12]} (the head is "
+          f"{head_node[:12]}), {out['device']}, pid {out['pid']}, {out['step_s']:.2f} s; submit "
+          f"to first result {res['submit_to_result_s']:.2f} s; logits equal to phase 15 (c)'s "
+          f"bit for bit {same} (max |diff| {err:.3e}), B1 launches {out['launches']} (want "
+          f"{out['n_layer']}); result to terminated {_s(res['result_to_terminated_s'])}, "
+          f"deleted from the API and terminated {res['terminations']} time(s), GPU 0 again "
+          f"{res['gone_to_gpu_0_s']:.2f} s later; states {res['counts']}; phase "
+          f"{res['seconds']:.1f} s — {card}", flush=True)
+    if not same or err != 0.0:
+        raise AssertionError(f"phase 25: the slice's logits differ from phase 15 (c)'s: {err}")
+    if out["launches"] != out["n_layer"]:
+        raise AssertionError(f"phase 25: B1 launched {out['launches']} times in the step, "
+                             f"want {out['n_layer']}")
+    if out["node"] == head_node or out["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"phase 25: the step ran on {out['node']} ({out['device']}), "
+                             f"not on the slice's node")
+    if (res["launches"] != 1 or res["terminations"] != 1
+            or during.get("GPU") != 1.0 or during.get(f"GPU-{SLICE_TYPE}-head") != 1.0
+            or during.get(f"gpu-slice:{slice_name}") != 1.0):
+        raise AssertionError(f"phase 25: one slice launched, registered and terminated: {res}")
+    print("[gpu slice] " + json.dumps(res, default=str), flush=True)
     return res
 
 
@@ -6159,7 +6422,11 @@ def main() -> int:
     pipeline = timed("pipeline", phase_pipeline, card, data)
     tune_rllib = timed("tune and rllib", phase_tune_rllib, card, train)
     timed("rllib rest", phase_rllib_rest, card)
-    operator = timed("operator", phase_operator, card, runtime)
+    operator = timed("operator", phase_operator, card, runtime,
+                     lambda gcs, session_dir: timed("gpu slice", phase_gpu_slice, card, gcs,
+                                                    session_dir, runtime))
+    seconds["operator"] -= seconds["gpu slice"]  # its [timing] line includes phase 25's
+    fwd_rec["in_gpu_slice_launches"] = operator["slice"]["b1_launches"]
     fwd_rec["in_workflow_launches"] = operator["launches"]
     preemption = timed("preemption", phase_preemption, card, train, runtime)
     fwd_rec["in_gcs_restart_actor_launches"] = sum(preemption["gcs"]["launches"])

@@ -645,7 +645,8 @@ class GcsServer:
         Hard silence — the heartbeat gap against the death threshold —
         is the only component allowed to reach 1.0.  Gray signals
         (raylet-measured GCS report RTT/consecutive errors, worker-
-        reported channel blocked-seconds and failed-reattach rates) cap
+        reported cross-host channel blocked-seconds and failed-reattach
+        rates) cap
         at 0.9: a slow-but-alive link can push a node to SUSPECT and
         QUARANTINED, but never to a false DEAD."""
         gap = now - self.last_heartbeat.get(node_id, now)
@@ -2591,7 +2592,13 @@ class GcsServer:
     def _note_channel_health(self, node_id: NodeID, worker_id: bytes, metrics):
         """Snoop channel blocked-seconds / failed-reattach totals out of
         a node's worker metric snapshots — the dataplane's contribution
-        to that node's gray-failure suspicion score."""
+        to that node's gray-failure suspicion score.
+
+        Only cross-host socket channels count their blocked time: a
+        same-host shm ring has no link to be slow, and its blocked time
+        is its peer's compute (a pipeline's stages wait on each other by
+        design), so counting it flapped a busy pipeline's node SUSPECT
+        and, held, quarantined the node under its own placement group."""
         if node_id not in self.nodes:
             return
         blocked = refail = 0.0
@@ -2599,8 +2606,9 @@ class GcsServer:
         for rec in metrics:
             name = rec.get("name")
             if name == "channel_blocked_seconds_total":
-                blocked += float(rec.get("value", 0.0))
-                seen = True
+                if rec.get("tags", {}).get("transport") == "socket":
+                    blocked += float(rec.get("value", 0.0))
+                    seen = True
             elif (
                 name == "channel_reattach_total"
                 and rec.get("tags", {}).get("result") == "failed"

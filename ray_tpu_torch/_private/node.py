@@ -99,6 +99,7 @@ def detect_resources(num_cpus=None, num_gpus=None, resources=None, memory=None) 
         n = GPUAcceleratorManager.get_current_node_num_accelerators()
         if n:
             out["GPU"] = float(n)
+            out.update(GPUAcceleratorManager.get_current_node_additional_resources())
     if memory is not None:
         out["memory"] = float(memory)
     else:

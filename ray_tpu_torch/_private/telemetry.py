@@ -301,8 +301,10 @@ class _Metrics:
         self.channel_blocked = m.Counter(
             "channel_blocked_seconds_total",
             "seconds channel ops spent blocked waiting on the peer "
-            "(write = reader hasn't acked, read = writer hasn't published)",
-            tag_keys=("op",),
+            "(write = reader hasn't acked, read = writer hasn't published; "
+            "transport = ring, the same-host shm ring, or socket, the "
+            "cross-host link)",
+            tag_keys=("op", "transport"),
         )
         self.channel_timeouts = m.Counter(
             "channel_timeouts_total",
@@ -859,11 +861,13 @@ def count_channel_ops(op: str, n: int) -> None:
     b.inc(float(n))
 
 
-def add_channel_blocked(op: str, seconds: float) -> None:
+def add_channel_blocked(op: str, seconds: float, transport: str) -> None:
     if not enabled() or seconds <= 0.0:
         return
-    b = _chan_blocked_bound.get(op) or _bind(
-        _chan_blocked_bound, op, "channel_blocked", {"op": op}
+    key = (op, transport)
+    b = _chan_blocked_bound.get(key) or _bind(
+        _chan_blocked_bound, key, "channel_blocked",
+        {"op": op, "transport": transport},
     )
     b.inc(seconds)
 

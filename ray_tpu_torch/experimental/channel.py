@@ -480,10 +480,10 @@ class Channel:
         telemetry.count_channel_ops("write", s["writes"] - last["writes"])
         telemetry.count_channel_ops("read", s["reads"] - last["reads"])
         telemetry.add_channel_blocked(
-            "write", s["write_blocked_s"] - last["write_blocked_s"]
+            "write", s["write_blocked_s"] - last["write_blocked_s"], self.kind
         )
         telemetry.add_channel_blocked(
-            "read", s["read_blocked_s"] - last["read_blocked_s"]
+            "read", s["read_blocked_s"] - last["read_blocked_s"], self.kind
         )
         telemetry.count_channel_timeout(
             "write", s["write_timeouts"] - last["write_timeouts"]

@@ -1,7 +1,8 @@
 """The port's autoscaler: demand scheduler unit tests + fake-multinode
-integration (copies of 13 of the 15 tests of ``tests/test_autoscaler.py``;
-its two TPU-slice provider tests wait for ROADMAP Queue A item 7), with
-``GPU`` node types where the reference's carry ``TPU``; and the fake
+integration (copies of the 15 tests of ``tests/test_autoscaler.py``), with
+``GPU`` node types where the reference's carry ``TPU``: its two TPU-slice
+provider tests drive the GPU-slice provider, ``h100-32`` (8 cards x 4
+hosts) where they use ``v5litepod-16`` (4 chips x 4 hosts); and the fake
 provider's nodes carrying exactly their node type's GPU count on a
 machine whose ``/dev`` shows cards.
 
@@ -133,6 +134,97 @@ def test_autoscaler_scales_up_for_pending_actors(ray_cluster):
         assert len(ray_tpu_torch.nodes()) >= 2
         for a in actors:
             ray_tpu_torch.kill(a)
+    finally:
+        monitor.stop()
+        for nid in provider.non_terminated_nodes({}):
+            provider.terminate_node(nid)
+
+
+def test_tpu_provider_slice_lifecycle_mock():
+    """Unit: slices are atomic — create/ready/terminate via the mocked
+    GPU-slice API, with slice-topology resources advertised."""
+    from ray_tpu_torch.autoscaler import GPUNodeProvider, MockGpuClient, slice_resources
+    from ray_tpu_torch.autoscaler.node_provider import TAG_NODE_KIND, TAG_NODE_STATUS
+
+    client = MockGpuClient()
+    provider = GPUNodeProvider({"gpu_client": client}, cluster_name="t")
+    ids = provider.create_node(
+        {"accelerator_type": "h100-32"}, {TAG_NODE_KIND: "worker"}, 2
+    )
+    assert len(ids) == 2
+    assert all(provider.is_running(i) for i in ids)  # mock: READY instantly
+    # pending → up-to-date promotion happens on the reconcile read
+    provider.non_terminated_nodes({})
+    assert provider.node_tags(ids[0])[TAG_NODE_STATUS] == "up-to-date"
+    res = slice_resources("h100-32", ids[0])
+    assert res["GPU"] == 32.0
+    assert res["GPU-h100-32-head"] == 1.0
+    assert provider.internal_ip(ids[0]) is not None
+    provider.terminate_node(ids[0])
+    assert provider.non_terminated_nodes({TAG_NODE_KIND: "worker"}) == [ids[1]]
+    assert client.get(ids[0]) is None  # API-side delete happened
+
+
+@pytest.mark.slow
+def test_autoscaler_scales_tpu_slice_up_and_down(ray_cluster):
+    """Demand for an h100-32 slice head pulls a whole slice up
+    (API-mocked, backed by a local raylet advertising the slice's
+    resources); idle timeout scales it back down."""
+    from ray_tpu_torch.autoscaler import (
+        GPUNodeProvider,
+        MockGpuClient,
+        Monitor,
+        StandardAutoscaler,
+    )
+
+    worker = get_global_worker()
+    session_dir = worker.session_info.get("session_dir")
+    gcs_address = worker.gcs_client.address
+
+    client = MockGpuClient()
+    provider = GPUNodeProvider(
+        {
+            "gpu_client": client,
+            "launch_local_raylets": True,
+            "gcs_address": gcs_address,
+            "session_dir": session_dir,
+        },
+        cluster_name="h100",
+    )
+    autoscaler = StandardAutoscaler(
+        provider,
+        node_types={
+            "gpu_h100_32": {
+                # slice hosts have CPUs too — tasks carry an implicit
+                # CPU: 1, so the node type must cover it to bin-pack
+                "resources": {"CPU": 4, "GPU": 32, "GPU-h100-32-head": 1},
+                "node_config": {"accelerator_type": "h100-32"},
+            }
+        },
+        max_workers=2,
+        idle_timeout_s=5.0,
+        gcs_client=worker.gcs_client,
+    )
+    monitor = Monitor(autoscaler, interval_s=1.0)
+    monitor.start()
+    try:
+        # gang-style demand: one slice-head + cards, unmet by the head node
+        @ray_tpu_torch.remote(resources={"GPU-h100-32-head": 1, "GPU": 4})
+        def on_slice():
+            return "on-slice"
+
+        assert ray_tpu_torch.get(on_slice.remote(), timeout=180) == "on-slice"
+        assert autoscaler.num_launches >= 1
+        assert len(client.list()) >= 1  # a slice exists in the (mock) API
+        # scale-down: demand gone, slice idles out
+        bo = retry.POLL.start(deadline_s=90)
+        while not (autoscaler.num_terminations >= 1 and not client.list()):
+            delay = bo.next_delay()
+            if delay is None:
+                break
+            time.sleep(delay)
+        assert autoscaler.num_terminations >= 1, "idle slice never terminated"
+        assert client.list() == [], "slice not deleted from the API"
     finally:
         monitor.stop()
         for nid in provider.non_terminated_nodes({}):

@@ -1,7 +1,8 @@
 """The port's autoscaler v2: the instance state machine, declarative
-constraints and the node updater (copies of 6 of the 8 tests of
-``tests/test_autoscaler_v2.py``; its two TPU-slice provider tests wait
-for ROADMAP Queue A item 7).
+constraints, the node updater and the GPU-slice provider (copies of the 8
+tests of ``tests/test_autoscaler_v2.py``; its two TPU-slice provider tests
+drive the GPU-slice provider, ``h100-32`` (8 cards x 4 hosts) where they
+use ``v5litepod-16`` and ``h100-1`` where they use ``v5litepod-4``).
 
 Reference: python/ray/autoscaler/v2/.
 """
@@ -250,3 +251,127 @@ def test_command_runner_updater_phases_and_failure():
     )
     with pytest.raises(CommandRunnerError, match="will-fail"):
         failing.update()
+
+
+def test_tpu_provider_runs_bootstrap_commands_per_host():
+    """A READY multi-host slice gets the command phases run on EVERY
+    host before turning up-to-date; a failing host marks the slice
+    update-failed."""
+    from ray_tpu_torch.autoscaler import GPUNodeProvider, MockGpuClient
+
+    ran = []
+
+    class _Runner:
+        def __init__(self, ip):
+            self.ip = ip
+
+        def run(self, cmd, *, timeout=600.0):
+            ran.append((self.ip, cmd))
+            return ""
+
+    client = MockGpuClient()
+    provider = GPUNodeProvider(
+        {
+            "gpu_client": client,
+            "setup_commands": ["pip install ray-tpu-torch"],
+            "start_ray_commands": ["ray-tpu-torch start"],
+            "command_runner_factory": _Runner,
+        },
+        cluster_name="bt",
+    )
+    (nid,) = provider.create_node({"accelerator_type": "h100-32"}, {}, 1)
+    provider.non_terminated_nodes({})  # reconcile: READY -> async bootstrap
+    for _ in _poll(30):
+        if provider.node_tags(nid)["node-status"] == "up-to-date":
+            break
+    assert provider.node_tags(nid)["node-status"] == "up-to-date"
+    ips = {ip for ip, _ in ran}
+    assert len(ips) == 4  # h100-32 = 4 hosts
+    per_host = [c for ip, c in ran if ip == sorted(ips)[0]]
+    assert any("pip install ray-tpu-torch" in c for c in per_host)
+    assert any("ray-tpu-torch start" in c for c in per_host)
+    # env carries slice identity + worker index
+    assert any("RAY_TPU_TORCH_SLICE_NAME=" + nid in c for _, c in ran)
+    assert any("RAY_TPU_TORCH_SLICE_WORKER_INDEX=3" in c for _, c in ran)
+
+    # failing bootstrap -> update-failed
+    class _Boom:
+        def __init__(self, ip):
+            pass
+
+        def run(self, cmd, *, timeout=600.0):
+            from ray_tpu_torch.autoscaler.command_runner import CommandRunnerError
+
+            raise CommandRunnerError(cmd, 1, "nope")
+
+    provider2 = GPUNodeProvider(
+        {"gpu_client": MockGpuClient(), "setup_commands": ["x"],
+         "command_runner_factory": _Boom},
+        cluster_name="bf",
+    )
+    (nid2,) = provider2.create_node({"accelerator_type": "h100-1"}, {}, 1)
+    provider2.non_terminated_nodes({})
+    for _ in _poll(30):
+        if provider2.node_tags(nid2)["node-status"] == "update-failed":
+            break
+    assert provider2.node_tags(nid2)["node-status"] == "update-failed"
+
+
+def test_v2_drives_tpu_slice_provider(ray_cluster):
+    """v2's instance state machine drives the GPU-slice provider
+    end-to-end — slice-head demand queues a launch, the slice allocates
+    (mock API + local raylet backing), the cluster registers it
+    (RAY_RUNNING), and the task lands on the slice."""
+    from ray_tpu_torch.autoscaler import GPUNodeProvider, MockGpuClient
+
+    worker = get_global_worker()
+    client = MockGpuClient()
+    provider = GPUNodeProvider(
+        {
+            "gpu_client": client,
+            "launch_local_raylets": True,
+            "gcs_address": worker.gcs_client.address,
+            "session_dir": worker.session_info.get("session_dir"),
+        },
+        cluster_name="v2e2e",
+    )
+    scaler = AutoscalerV2(
+        provider,
+        node_types={
+            "gpu_h100_32": {
+                "resources": {"CPU": 4, "GPU": 32, "GPU-h100-32-head": 1},
+                "node_config": {"accelerator_type": "h100-32"},
+            }
+        },
+        max_workers=2,
+        idle_timeout_s=9999,
+        gcs_client=worker.gcs_client,
+    )
+    try:
+
+        @ray_tpu_torch.remote(resources={"GPU-h100-32-head": 1, "GPU": 4})
+        def on_slice():
+            return "v2-on-slice"
+
+        ref = on_slice.remote()
+        deadline = time.monotonic() + 120
+        done = False
+        while time.monotonic() < deadline and not done:
+            scaler.update()
+            ready, _ = ray_tpu_torch.wait([ref], num_returns=1, timeout=1)
+            done = bool(ready)
+        assert ray_tpu_torch.get(ref, timeout=30) == "v2-on-slice"
+        # Same eventual-consistency as test_v2_scales_up_for_tasks: the
+        # task can land inside the launching tick; reconcile until the
+        # instance is observed RAY_RUNNING.
+        for _ in _poll(max(0.0, deadline - time.monotonic())):
+            if scaler.status()["counts"].get("RAY_RUNNING", 0) >= 1:
+                break
+            scaler.update()
+        counts = scaler.status()["counts"]
+        assert counts.get("RAY_RUNNING", 0) >= 1, counts
+        assert len(client.list()) >= 1
+    finally:
+        for nid in provider.non_terminated_nodes({}):
+            provider.terminate_node(nid)
+        assert client.list() == [], "slice not deleted from the API"

@@ -71,9 +71,21 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 *_SERVE_PLANE_MODULES, "ray_tpu_torch.serve.llm.deployment",
                 "ray_tpu_torch.util.state", "ray_tpu_torch.util.client.worker",
                 "ray_tpu_torch.util.joblib.ray_backend", "ray_tpu_torch.util.dask.scheduler",
-                *_TUNE_RLLIB_MODULES):
+                *_TUNE_RLLIB_MODULES, *_DEVTOOLS_MODULES,
+                "ray_tpu_torch._private.accelerators.gpu",
+                "ray_tpu_torch.autoscaler.gpu_node_provider"):
         assert mod in out["imported"]
 
+
+_DEVTOOLS_MODULES = (
+    "ray_tpu_torch.devtools.lint", "ray_tpu_torch.devtools.lint.__main__",
+    "ray_tpu_torch.devtools.lint.cli", "ray_tpu_torch.devtools.lint.core",
+    "ray_tpu_torch.devtools.lint.baseline", "ray_tpu_torch.devtools.lint.cache",
+    "ray_tpu_torch.devtools.lint.checkers.generation_key",
+    "ray_tpu_torch.devtools.lint.checkers.metrics_drift",
+    "ray_tpu_torch.devtools.lint.checkers.retry_gate",
+    "ray_tpu_torch.devtools.lint.checkers.trace_orphan",
+)
 
 _TUNE_RLLIB_MODULES = (
     "ray_tpu_torch.tune", "ray_tpu_torch.tune.tuner", "ray_tpu_torch.tune.tune_controller",
@@ -148,7 +160,10 @@ def test_port_sources_import_no_jax_and_no_ray_tpu_at_any_depth():
             "ray_tpu_torch/rllib/env/multi_agent_env.py",
             "ray_tpu_torch/rllib/offline/offline_data.py",
             "ray_tpu_torch/rllib/offline/estimators.py",
-            "ray_tpu_torch/rllib/utils/replay_buffers.py"} <= read
+            "ray_tpu_torch/rllib/utils/replay_buffers.py",
+            "ray_tpu_torch/devtools/lint/cli.py", "ray_tpu_torch/devtools/lint/core.py",
+            "ray_tpu_torch/devtools/lint/checkers/import_cycle.py",
+            "ray_tpu_torch/autoscaler/gpu_node_provider.py"} <= read
     assert bad == []
 
 
@@ -246,13 +261,24 @@ def test_runtime_modules_do_not_import_torch():
 
 
 def test_autoscaler_has_no_tpu_provider_and_names_item_7():
-    """The TPU-slice provider needs live cloud APIs: the port's autoscaler
-    does not export it, and asking for it says where it stands."""
+    """The port's autoscaler exports the GPU-slice provider (ROADMAP Queue
+    A item 7, whose name the test keeps) and no TPU one: asking for a TPU
+    name raises an ImportError that names its GPU counterpart."""
     import ray_tpu_torch.autoscaler as autoscaler
+    from ray_tpu_torch.autoscaler import (  # noqa: F401
+        GceGpuClient,
+        GPUNodeProvider,
+        MockGpuClient,
+        slice_resources,
+    )
 
-    for name in ("TPUNodeProvider", "MockTpuClient", "GceTpuClient", "slice_resources"):
+    for name in ("GPUNodeProvider", "MockGpuClient", "GceGpuClient", "slice_resources"):
+        assert name in autoscaler.__all__
+    for name, counterpart in (("TPUNodeProvider", "GPUNodeProvider"),
+                              ("MockTpuClient", "MockGpuClient"),
+                              ("GceTpuClient", "GceGpuClient")):
         assert name not in autoscaler.__all__
-        with pytest.raises(ImportError, match=r"ROADMAP Queue A item 7"):
+        with pytest.raises(ImportError, match=rf"use {counterpart}\b"):
             exec(f"from ray_tpu_torch.autoscaler import {name}", {})
     with pytest.raises(AttributeError):
         autoscaler.NoSuchName  # noqa: B018

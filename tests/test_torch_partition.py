@@ -362,6 +362,35 @@ def test_suspicion_score_blend(gcs, monkeypatch):
     assert srv._suspicion_score(nid2, now, threshold=10.0) == 0.9
 
 
+def test_ring_blocked_time_is_not_a_slow_link(gcs):
+    """Only a cross-host socket channel's blocked time feeds a node's
+    suspicion: a same-host shm ring has no link, and its blocked time is
+    its peer's compute (a pipeline's stages waiting on each other)."""
+    srv, _ = gcs
+    now = time.monotonic()
+
+    def report(nid, transport, blocked):
+        srv._note_channel_health(nid, b"w", [{
+            "name": "channel_blocked_seconds_total",
+            "tags": {"op": "read", "transport": transport},
+            "value": blocked,
+        }])
+
+    ring, _ = _add_node(srv)
+    srv.last_heartbeat[ring] = now
+    report(ring, "ring", 0.0)
+    assert srv._suspicion_score(ring, now - 1.0, threshold=10.0) == 0.0
+    report(ring, "ring", 100.0)  # 100 s blocked in a 1 s window
+    assert srv._suspicion_score(ring, now, threshold=10.0) == 0.0
+
+    sock, _ = _add_node(srv)
+    srv.last_heartbeat[sock] = now
+    report(sock, "socket", 0.0)
+    srv._suspicion_score(sock, now - 1.0, threshold=10.0)
+    report(sock, "socket", 100.0)
+    assert srv._suspicion_score(sock, now, threshold=10.0) == 0.9
+
+
 def test_finish_quarantine_gating(gcs):
     """Only a QUARANTINE-reason drain parks in QUARANTINED; every other
     drain reason keeps its termination semantics."""
@@ -660,3 +689,56 @@ def test_serve_demotes_and_repromotes_quarantined_node(two_node_cluster):
         "side node to be readmitted",
     )
     _wait_for(lambda: side in _hits(), 60, "router to re-promote the replica")
+
+
+@ray_tpu_torch.remote(num_cpus=0)
+class _StarvedRingReader:
+    """The reader of a same-host ring whose writer never publishes: a
+    pipeline stage waiting in its bubble, at the scale of seconds."""
+
+    def starve(self, path: str, seconds: float) -> float:
+        from ray_tpu_torch.experimental.channel import Channel, ChannelTimeout
+        from ray_tpu_torch.util import metrics
+
+        ch = Channel(path, max_size=4096, create=True)
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            try:
+                ch.read(timeout=0.25)
+            except ChannelTimeout:
+                pass  # a timed-out read flushes its blocked seconds
+            metrics.flush()
+        return ch.stats["read_blocked_s"]
+
+
+def test_blocked_ring_does_not_flap_its_node_suspect(two_node_cluster, tmp_path):
+    """A node whose workers sit blocked on same-host rings stays ALIVE:
+    the blocked seconds reach the GCS (transport=ring), but they are its
+    peer's compute, not a slow link, so the gray-failure ladder neither
+    cordons the node (SUSPECT) nor quarantines it under its own work."""
+    from ray_tpu_torch.util import state
+
+    two_node_cluster({}, head_args={"num_cpus": 2})
+    seen = set()
+    reader = _StarvedRingReader.remote()
+    ref = reader.starve.remote(str(tmp_path / "ring"), 6.0)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        seen.update(n["state"] for n in state.list_nodes())
+        done, _ = ray_tpu_torch.wait([ref], timeout=0.2)
+        if done:
+            break
+    blocked = ray_tpu_torch.get(ref, timeout=30)
+    assert blocked > 4.0
+    reported = sum(
+        m.get("value") or 0.0 for m in state.metrics()
+        if m.get("name") == "channel_blocked_seconds_total"
+        and (m.get("tags") or {}).get("transport") == "ring"
+    )
+    assert reported > 4.0, reported
+    # two health periods past the last report: still no suspicion
+    deadline = time.monotonic() + 2.5
+    while time.monotonic() < deadline:
+        seen.update(n["state"] for n in state.list_nodes())
+        time.sleep(0.2)  # graftlint: disable=retry-gate -- scan resolution of a state watch with its own deadline, not a retry delay
+    assert seen == {"ALIVE"}, seen

@@ -455,6 +455,85 @@ def test_channel_dataplane_engaged_and_exact(serve_cluster):
     assert not dp.dead
 
 
+def test_try_next_then_oneshot_result_on_one_handle_keeps_dataplane(serve_cluster, monkeypatch):
+    """One handle, one sync thread: a dataplane stream drained in part
+    with ``try_next()``, a blocking one-shot ``.result()`` on the same
+    handle while the stream is open, then the rest of the stream.  Both
+    answers equal the RPC path's, and the replica's channel still serves
+    afterwards: its ``SERVED`` counts grow and the client is not dead."""
+    from ray_tpu_torch.serve._private.dataplane import ChannelClient, ChannelStream
+    from ray_tpu_torch.serve._private.router import _routers
+
+    @serve.deployment(name="MixedDep")
+    class MixedDep:
+        def __call__(self, payload):
+            return {"echo": payload}
+
+        def tokens(self, n):
+            for i in range(n):
+                yield {"tok": i}
+
+        def served(self):
+            from ray_tpu_torch.serve._private import dataplane
+
+            return dict(dataplane.SERVED)
+
+    h = serve.run(MixedDep.bind(), name="mixed_dep")
+    assert h.remote({"a": 1}).result(timeout=30) == {"echo": {"a": 1}}
+    router = _routers[h.deployment_name]
+
+    def served():
+        # over actor RPC, so that reading the counts does not move them
+        actor = router.get_replica_actor(router.pick()["replica_id"])
+        return ray_tpu_torch.get(
+            actor.handle_request.remote("served", (), {}, "", None), timeout=30)
+
+    def mixed(n_items):
+        gen = h.options(stream=True).tokens.remote(n_items)
+        head = []
+        for _ in _poll(30):
+            item = gen.try_next()
+            if item is not None:
+                head.append(item)
+            if len(head) == 3:
+                break
+        one = h.remote({"b": 2}).result(timeout=30)
+        tail = []
+        for _ in _poll(30):
+            try:
+                item = gen.try_next()
+            except StopIteration:
+                break
+            if item is not None:
+                tail.append(item)
+        return gen, head + tail, one
+
+    dps = [v for v in router._dataplanes.values() if isinstance(v, ChannelClient)]
+    assert dps, "dataplane did not attach"
+    before = served()
+    gen, items, one = mixed(12)
+    assert isinstance(gen._gen, ChannelStream)
+    after = served()
+    assert after["stream"] == before["stream"] + 1, (before, after)
+    assert after["call"] == before["call"] + 1, (before, after)
+    assert after["stream_items"] == before["stream_items"] + 12, (before, after)
+    assert not dps[0].dead
+    # the channel still serves: no fall back to RPC
+    assert h.remote({"c": 3}).result(timeout=30) == {"echo": {"c": 3}}
+    assert list(h.options(stream=True).tokens.remote(2)) == [{"tok": 0}, {"tok": 1}]
+    again = served()
+    assert again["call"] == after["call"] + 1 and again["stream"] == after["stream"] + 1
+    assert router._dataplanes and all(not v.dead for v in router._dataplanes.values())
+
+    # the same sequence over actor RPC gives the same answers
+    monkeypatch.setenv("RAY_TPU_TORCH_serve_channel_dataplane", "0")
+    rpc_gen, rpc_items, rpc_one = mixed(12)
+    assert not isinstance(rpc_gen._gen, ChannelStream)
+    assert served() == again
+    assert (items, one) == (rpc_items, rpc_one) == (
+        [{"tok": i} for i in range(12)], {"echo": {"b": 2}})
+
+
 def test_rpc_path_exact(serve_cluster, monkeypatch):
     """With ``serve_channel_dataplane`` off the router->replica path is
     actor RPC (the reference's path with its channel dataplane off):
