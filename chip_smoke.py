@@ -422,15 +422,17 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # kernel-vs-plain cases, (T, dtype, causal, D, fused q/k/v): the prefill
 # buckets' range with ragged 100, both dtypes, one non-causal case and
 # D=128 per dtype; then bf16 on both sides of the first and second TMA
-# tile edges (64-key tiles in B1, B2 and B3; 64-query tiles in B1 and B2,
-# and in B3 64 at D=64, 32 at D=128)
+# tile edges (64-row tiles in B1, in B2 and B3 at D=64 and in the rings of
+# B2 and B3 at D=128; 128-row blocks over two warpgroups in B2 and B3 at
+# D=128)
 _DTYPES = (torch.bfloat16, torch.float32)
-EDGE_TS = (1, 63, 65, 127, 129, 1000)
+EDGE_TS = (1, 63, 65, 127, 129, 255, 257, 1000)
 KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]
                 + [(100, dt, False, 64, False) for dt in _DTYPES]
                 + [(256, dt, True, 128, False) for dt in _DTYPES]
                 + [(T, torch.bfloat16, True, 64, True) for T in EDGE_TS]
-                + [(T, torch.bfloat16, False, 128, True) for T in EDGE_TS])
+                + [(T, torch.bfloat16, False, 128, True) for T in EDGE_TS]
+                + [(T, torch.bfloat16, True, 128, True) for T in (129, 257)])
 
 
 def _card() -> str:
@@ -565,9 +567,12 @@ def _fwd_work(B, T, H, D, elt=2, causal=True):
     return 4 * B * H * D * _pairs(T, causal), 4 * B * T * H * D * elt + B * H * T * 4
 
 
-def _dq_work(B, T, H, D, elt=2, causal=True):
-    """B2: QK^T, dO V^T and dS K; q, k, v, dO, LSE, Delta in, dQ out."""
-    return 6 * B * H * D * _pairs(T, causal), 5 * B * T * H * D * elt + 2 * B * H * T * 4
+def _dq_work(B, T, H, D, elt=2, causal=True, with_delta=False):
+    """B2: QK^T, dO V^T and dS K; q, k, v, dO, LSE, Delta in, dQ out.  With
+    Delta formed in B2 (``with_delta``), also rowsum(dO * O): O in and
+    Delta out instead of in."""
+    flops = 6 * B * H * D * _pairs(T, causal) + (2 * B * T * H * D if with_delta else 0)
+    return flops, (5 + with_delta) * B * T * H * D * elt + 2 * B * H * T * 4
 
 
 def _dkv_work(B, T, H, D, elt=2, causal=True):
@@ -685,8 +690,10 @@ def _hold_bf16_kernels(tag: str, label: str, layout: str, q, k, v, do) -> dict:
     phase_bwd_kernels' 1e-2 of each gradient's largest entry.  The row
     check's power is shown on a planted fault: the plain version with one
     64-key V tile zeroed (keys T-128..T-65), which leaves the LSE exact and
-    moves only the last 128 rows, must read above O_ROW_TOL.  Raises on a
-    disagreement, else returns the errors that the records carry."""
+    moves only the last 128 rows, must read above O_ROW_TOL.  The Delta
+    that B2 forms in its prologue is held against the torch ``_delta`` to
+    1e-5 of max |Delta| (both sum dO * O in f32, in another order).  Raises
+    on a disagreement, else returns the errors that the records carry."""
     shape = tuple(q.shape)
     o, lse = fa.flash_attention_fwd(q, k, v)
     ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
@@ -698,18 +705,22 @@ def _hold_bf16_kernels(tag: str, label: str, layout: str, q, k, v, do) -> dict:
     fault_err = _row_rel(fa.flash_attention_fwd_reference(q, k, v_fault)[0], ref_o)
     del ref_o, ref_lse, v_fault
     got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    delta = fa.flash_attention_dq(q, k, v, do, lse, o=o)[1]
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
     errs = dict(zip(("dq", "dk", "dv"), (_rel(a, b) for a, b in zip(got, ref))))
-    finite = all(bool(torch.isfinite(a.float()).all()) for a in (o, lse, *got))
-    del got, ref
+    errs["delta"] = _rel(delta, fa._delta(o, do))
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in (o, lse, delta, *got))
+    del got, ref, delta
     ok = (finite and fwd_err <= 2e-2 and row_err <= O_ROW_TOL and lse_err <= 1e-3
-          and all(rel <= 1e-2 for _, rel in errs.values()))
+          and errs["delta"][1] <= 1e-5
+          and all(errs[x][1] <= 1e-2 for x in ("dq", "dk", "dv")))
     print(f"[{tag}] {label} {shape} bfloat16 causal {layout}: flash_fwd "
           f"max|dO|={fwd_err:.3e} (tol 0.02), by row {row_err:.3e} of max|O_ref| (tol "
           f"{O_ROW_TOL:g}; one V tile zeroed reads {fault_err:.3e}) max|dLSE|={lse_err:.3e} "
           f"(tol 0.001); max|err|/max|ref| dq {errs['dq'][1]:.3e} dk {errs['dk'][1]:.3e} dv "
-          f"{errs['dv'][1]:.3e} (tol 0.01) {'ok' if ok else 'FAIL'}", flush=True)
+          f"{errs['dv'][1]:.3e} (tol 0.01), B2's Delta {errs['delta'][1]:.3e} (tol 1e-05) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"flash kernels disagree with their plain versions at the "
                              f"{label} {shape}")
@@ -722,17 +733,22 @@ def _hold_bf16_kernels(tag: str, label: str, layout: str, q, k, v, do) -> dict:
 
 def _time_bf16_kernels(tag: str, path: str, q, k, v, do, errs: dict, card: str,
                        plain_reps: int = 3, causal: bool = True,
-                       sleep_cycles: int = 2_000_000) -> list:
+                       sleep_cycles: int = 2_000_000, delta_in_dq: bool = True) -> list:
     """B1, B2 and B3 timed on these inputs beside their plain versions,
     their bounds and the library's attention on the same q, k, v
     (``scaled_dot_product_attention``'s forward for B1, its backward for
     B2 and B3); returns the three records with ``errs`` from
-    ``_hold_bf16_kernels`` (or the ring's hold).  ``sleep_cycles`` is
-    ``_time_ms``'s: a small shape needs a longer sleep, or the library's
-    backward (an autograd call, host-heavy) times its host."""
+    ``_hold_bf16_kernels`` (or the ring's hold).  B2 is timed as its path
+    calls it: forming Delta in its prologue (``delta_in_dq``, the
+    backward's path; its plain version then includes ``_delta``) or
+    reading a given Delta (ring attention's blocks); the other way is
+    timed beside it, as is the torch Delta that the backward no longer
+    runs.  ``sleep_cycles`` is ``_time_ms``'s: a small shape needs a
+    longer sleep, or the library's backward (an autograd call,
+    host-heavy) times its host."""
     time_ms = functools.partial(_time_ms, sleep_cycles=sleep_cycles)
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
-    delta = fa._delta(o, do)
+    delta = fa.flash_attention_dq(q, k, v, do, lse, causal=causal, o=o)[1]
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
@@ -743,38 +759,46 @@ def _time_bf16_kernels(tag: str, path: str, q, k, v, do, errs: dict, card: str,
     with torch.no_grad():
         fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
-    dq_ms = time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, causal))
-    dq_plain = time_ms(lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta, causal),
-                        reps=plain_reps, rounds=3)
+    dq_with_delta_ms = time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, causal=causal,
+                                                             o=o))
+    dq_given_delta_ms = time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, causal))
+    dq_ms = dq_with_delta_ms if delta_in_dq else dq_given_delta_ms
+    dq_plain = time_ms(lambda: fa.flash_attention_dq_reference(
+        q, k, v, do, lse, fa._delta(o, do) if delta_in_dq else delta, causal),
+        reps=plain_reps, rounds=3)
     dkv_ms = time_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
     dkv_plain = time_ms(
         lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta, causal),
         reps=plain_reps, rounds=3)
     bwd_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
-    delta_ms = time_ms(lambda: fa._delta(o, do))
+    torch_delta_ms = time_ms(lambda: fa._delta(o, do))
     # the library computes dq, dk and dv in one backward call
     bwd_lib = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                                    retain_graph=True))
     lib_note = {"library_call": "scaled_dot_product_attention backward: dq, dk and dv in "
-                                "one call", "flash_attention_bwd_ms": bwd_ms,
-                "delta_ms": delta_ms}
+                                "one call", "flash_attention_bwd_ms": bwd_ms}
+    dq_note = {"dq_with_delta_ms": dq_with_delta_ms, "dq_given_delta_ms": dq_given_delta_ms,
+               "torch_delta_ms": torch_delta_ms, "delta_in_dq": delta_in_dq}
+    if "delta" in errs:
+        dq_note.update(max_abs_err_delta=errs["delta"][0], max_rel_err_delta=errs["delta"][1])
     recs = [
         _record("flash_attention_fwd", path, shape, fwd_ms, fwd_plain, fwd_lib,
                 *_fwd_work(*shape, causal=causal), errs["fwd"], causal=causal,
                 max_abs_err_lse=errs["lse"], max_row_rel_err=errs["fwd_row"],
                 planted_fault_row_rel_err=errs["fwd_fault_row"]),
         _record("flash_attention_dq", path, shape, dq_ms, dq_plain, bwd_lib,
-                *_dq_work(*shape, causal=causal), errs["dq"][0], causal=causal,
-                max_rel_err=errs["dq"][1], **lib_note),
+                *_dq_work(*shape, causal=causal, with_delta=delta_in_dq), errs["dq"][0],
+                causal=causal, max_rel_err=errs["dq"][1], **lib_note, **dq_note),
         _record("flash_attention_dkv", path, shape, dkv_ms, dkv_plain, bwd_lib,
                 *_dkv_work(*shape, causal=causal), max(errs["dk"][0], errs["dv"][0]),
                 causal=causal, max_rel_err=max(errs["dk"][1], errs["dv"][1]), **lib_note),
     ]
     for rec in recs:
         _print_record(tag, rec, card)
-    print(f"[{tag}] backward at {shape}: Delta + dq + dkv {bwd_ms:.4f} ms (Delta alone, "
-          f"in torch, {delta_ms:.4f} ms), library backward {bwd_lib:.4f} ms — {card}",
-          flush=True)
+    print(f"[{tag}] backward at {shape}: dq (Delta inside) + dkv {bwd_ms:.4f} ms, library "
+          f"backward {bwd_lib:.4f} ms; dq with Delta {dq_with_delta_ms:.4f} ms, dq reading a "
+          f"given Delta {dq_given_delta_ms:.4f} ms, the torch Delta the backward no longer "
+          f"runs {torch_delta_ms:.4f} ms — {card}", flush=True)
     return recs
 
 
@@ -782,15 +806,16 @@ HOST_SHAPE, HOST_CALLS, HOST_ROUNDS = (1, 64, 12, 64), 200, 5
 
 
 def _host_calls(dt: torch.dtype) -> dict:
-    """The three wrappers as calls on HOST_SHAPE inputs of one dtype."""
+    """The three wrappers as calls on HOST_SHAPE inputs of one dtype, B2 as
+    the backward calls it (forming Delta)."""
     g = torch.Generator(device="cuda").manual_seed(400)
     q, k, v, do = (torch.randn(*HOST_SHAPE, generator=g, device="cuda").to(dt)
                    for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = fa._delta(o, do)
+    delta = fa.flash_attention_dq(q, k, v, do, lse, o=o)[1]
     return {
         "flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v),
-        "flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+        "flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, do, lse, o=o),
         "flash_attention_dkv": lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
     }
 
@@ -1355,8 +1380,10 @@ def _profile_step(run, steps: int = 1) -> dict:
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        # each kernel's bf16 instantiations: flash_dq_bf16_kernel<64> and the
+        # warp-specialised flash_dq_bf16_ws_kernel<128> both count as B2
         "flash_ms_per_step": {
-            name: ms([e for e in kernels if name in e.key])
+            name: ms([e for e in kernels if name[:-len("_kernel")] in e.key])
             for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
                          "flash_dkv_bf16_kernel")},
         "top_kernels": [{"name": e.key[:80], "count": e.count, "ms_per_step": ms([e])}
@@ -3615,7 +3642,7 @@ def phase_sharded(card: str, data: dict) -> dict:
             "fwd_fault_row": ring["block_fault_row"], "lse": ring["block_lse"],
             **{x: ring[f"block_{x}"] for x in ("dq", "dk", "dv")}}
     recs = _time_bf16_kernels("sharded kernels", "ring block", qb, kb, vb, dob, errs, card,
-                              causal=False, sleep_cycles=50_000_000)
+                              causal=False, sleep_cycles=50_000_000, delta_in_dq=False)
     for rec in recs:
         rec["launches"] = nb  # the non-causal launches of the ring's run
         rec["causal_launches_in_ring"] = RING_N

@@ -12,8 +12,9 @@ plain int (``<wrapper>.launches``):
 - ``flash_attention_dq`` (``csrc/flash_bwd.cu``, replaces ``_dq_kernel``);
 - ``flash_attention_dkv`` (``csrc/flash_bwd.cu``, replaces ``_dkv_kernel``).
 
-``flash_attention_bwd`` computes Delta = rowsum(dO * O) in torch, as the
-reference computes it in XLA, and calls the two backward wrappers.
+``flash_attention_bwd`` calls the two backward wrappers; the dq kernel forms
+Delta = rowsum(dO * O) (which the reference computes in XLA outside its
+kernels) in its prologue and hands it to the dkv kernel.
 ``flash_attention`` is the ``torch.autograd.Function`` over all three, the
 counterpart of the reference's ``custom_vjp`` ``flash_attention``.  Every
 function keeps the reference's ``[B, T, H, D]`` layout at its interface.
@@ -109,8 +110,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 # of each [B, T, H, D] input, the stream
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
                  + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
 _DQ, _DKV = 0, 1  # ray_tpu_flash_bwd's kernel argument
 
 
@@ -186,7 +187,8 @@ flash_attention_fwd.launches = 0
 # ----------------------------------------------------------------------
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """Delta = rowsum(dO * O) in float32, [B, H, T] contiguous (the
-    reference's ``_flash_bwd_impl`` computes it outside its kernels)."""
+    reference's ``_flash_bwd_impl`` computes it outside its kernels): the
+    plain version of the dq kernel's prologue."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -229,10 +231,21 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = True):
     return (dq, *flash_attention_dkv_reference(q, k, v, do, lse, delta, causal))
 
 
-def _check_bwd(q, k, v, do, lse, delta) -> None:
-    _check_inputs(q, ("k", k), ("v", v), ("do", do))
+def _one_of(delta, o) -> None:
+    if (delta is None) == (o is None):
+        raise ValueError("give the dq kernel either delta (rowsum(dO * O)) or o (the "
+                         "forward's output, from which it forms delta), not both or neither")
+
+
+def _check_bwd(q, k, v, do, lse, delta, o=None) -> None:
+    """What the backward kernels take: q, k, v, dO (and O) alike, as the
+    forward's checks; LSE and a given Delta contiguous float32 [B, H, T]."""
+    _one_of(delta, o)
+    _check_inputs(q, ("k", k), ("v", v), ("do", do), *(() if o is None else (("o", o),)))
     B, T, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if t.shape != (B, H, T) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 [B, H, T] = {(B, H, T)}, "
                              f"got {t.dtype} {tuple(t.shape)}")
@@ -240,34 +253,53 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
 
 
-def _launch_bwd(kernel: int, q, k, v, do, lse, delta, out0, out1, causal) -> None:
+def _launch_bwd(kernel: int, q, k, v, do, lse, delta, out0, out1, causal, o=None) -> None:
+    """One backward kernel; with ``o`` the dq kernel writes Delta into
+    ``delta`` instead of reading it."""
     lib = _build.load("flash_bwd")
     fn = _bind(lib, "ray_tpu_flash_bwd", _BWD_ARGTYPES)
     B, T, H, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+            kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            None if o is None else o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            out0.data_ptr(), None if out1 is None else out1.data_ptr(),
             B, H, T, D, _DTYPE_CODE[q.dtype], int(bool(causal)), 1.0 / math.sqrt(D),
-            *_strides(q, k, v, do), stream,
+            *_strides(q, k, v, do), *(_strides(o) if o is not None else [0, 0, 0]), stream,
         )
     _raise_on_error(lib, err, ("flash_bwd dq", "flash_bwd dkv")[kernel])
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
-    """dQ [B, T, H, D] from q, k, v, dO [B, T, H, D] and the float32
-    LSE and Delta [B, H, T]: the dq kernel (B2) for CUDA tensors, its
-    plain version for CPU tensors.  The kernel takes what
-    ``flash_attention_fwd``'s takes, dO included, and raises on anything
-    else.  ``flash_attention_dq.launches`` counts kernel launches."""
+def flash_attention_dq(q, k, v, do, lse, delta=None, causal: bool = True, o=None):
+    """dQ [B, T, H, D] from q, k, v, dO [B, T, H, D], the float32 LSE
+    [B, H, T] and either Delta = rowsum(dO * O) (float32 [B, H, T]) or the
+    forward's output ``o``: the dq kernel (B2) for CUDA tensors, its plain
+    version for CPU tensors.  Given ``delta`` (ring attention's merged
+    rows) it returns dQ.  Given ``o`` instead, the kernel forms Delta in
+    its prologue, writes it to a new [B, H, T] float32 tensor and returns
+    ``(dq, delta)``, Delta for the dkv kernel; the plain version computes
+    it with ``_delta``.  The kernel takes what ``flash_attention_fwd``'s
+    takes, dO and O included, and raises on anything else.
+    ``flash_attention_dq.launches`` counts kernel launches, Delta's
+    included (it costs none of its own)."""
+    _one_of(delta, o)
     if not _on_card(q, "flash_attention_dq"):
+        if delta is None:
+            delta = _delta(o, do)
+            return flash_attention_dq_reference(q, k, v, do, lse, delta, causal), delta
         return flash_attention_dq_reference(q, k, v, do, lse, delta, causal)
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta, o)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd(_DQ, q, k, v, do, lse, delta, dq, None, causal)
+    if o is None:
+        _launch_bwd(_DQ, q, k, v, do, lse, delta, dq, None, causal)
+        flash_attention_dq.launches += 1
+        return dq
+    B, T, H, _ = q.shape
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    _launch_bwd(_DQ, q, k, v, do, lse, delta, dq, None, causal, o=o)
     flash_attention_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta,
@@ -291,14 +323,15 @@ flash_attention_dkv.launches = 0
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv) [B, T, H, D] from the forward's inputs, its output O
-    and LSE, and the output gradient dO: Delta in torch, then the dq and
-    dkv kernels for CUDA tensors (plain versions for CPU tensors).  dO
-    arrives from autograd in any layout: it is copied once when the
-    kernels cannot read it through its strides."""
-    if _on_card(q, "flash_attention_bwd") and not _kernel_layout_ok(do):
-        do = do.clone(memory_format=torch.contiguous_format)
-    delta = _delta(o, do)
-    dq = flash_attention_dq(q, k, v, do, lse, delta, causal)
+    and LSE, and the output gradient dO: the dq kernel, which forms Delta
+    from O and dO in its prologue, then the dkv kernel on that Delta, for
+    CUDA tensors (plain versions, Delta by ``_delta``, for CPU tensors).
+    dO arrives from autograd in any layout: it (or an O the kernels cannot
+    read through its strides) is copied once."""
+    if _on_card(q, "flash_attention_bwd"):
+        do, o = (t if _kernel_layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
+                 for t in (do, o))
+    dq, delta = flash_attention_dq(q, k, v, do, lse, causal=causal, o=o)
     return (dq, *flash_attention_dkv(q, k, v, do, lse, delta, causal))
 
 
@@ -323,6 +356,6 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """[B, T, H, D] flash attention, differentiable: the forward kernel
-    (B1) saves q, k, v, O and the LSE; the backward runs the dq (B2) and
-    dkv (B3) kernels.  CPU tensors take the plain versions of all three."""
+    (B1) saves q, k, v, O and the LSE; the backward runs the dq (B2, with
+    Delta) and dkv (B3) kernels.  CPU tensors take the plain versions of all three."""
     return _FlashAttention.apply(q, k, v, causal)

@@ -228,3 +228,66 @@ def test_flash_bwd_wrapper_rejects_what_the_kernels_do_not_take(case):
         delta = torch.zeros(1, 8, 2).transpose(1, 2)  # [B, H, T] but not contiguous
     with pytest.raises(ValueError):
         fa._check_bwd(q, k, v, do, lse, delta)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_with_delta_in_dq_matches_pallas_interpret(D, causal):
+    """The backward as the card runs it, with Delta formed by the dq
+    wrapper (on CPU tensors its plain version, ``_delta``, stands for the
+    kernel's prologue) and handed to the dkv wrapper, at a ragged T and
+    both head dims: the Delta it returns against rowsum(dO * O) in numpy,
+    and dq, dk, dv against the Pallas dq and dkv kernels in interpret mode
+    from the same O, LSE and dO."""
+    B, T, H = 1, 100, 2
+    q, k, v = _qkv(B, T, H, D, seed=30 + D + causal)
+    do = _qkv(B, T, H, D, seed=40 + D + causal)[0]
+    kw = dict(block_q=20, block_k=20, scale=1.0 / np.sqrt(D), causal=causal, interpret=True)
+    out, lse = _flash_fwd_impl(_to_bh(q), _to_bh(k), _to_bh(v), **kw)
+    ref = _flash_bwd_impl(_to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do), out, lse, **kw)
+    o = _from_bh(out, B, H).copy()
+    qt, kt, vt, dot, ot = (torch.from_numpy(a) for a in (q, k, v, do, o))
+    lse_t = torch.from_numpy(np.asarray(lse).reshape(B, H, T).copy())
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    dq, delta = fa.flash_attention_dq(qt, kt, vt, dot, lse_t, causal=causal, o=ot)
+    assert delta.dtype == torch.float32 and delta.shape == (B, H, T) and delta.is_contiguous()
+    np.testing.assert_allclose(delta.numpy(), (do * o).sum(-1).transpose(0, 2, 1), **TOL)
+    got = (dq, *fa.flash_attention_dkv(qt, kt, vt, dot, lse_t, delta, causal))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == (B, T, H, D), name
+        np.testing.assert_allclose(a.numpy(), _from_bh(b, B, H), err_msg=name, **TOL)
+    whole = fa.flash_attention_bwd(qt, kt, vt, ot, lse_t, dot, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(whole, got))
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == before
+
+
+@pytest.mark.parametrize("case", ["o_shape", "o_dtype", "o_last_stride", "o_device",
+                                  "delta_shape", "neither", "both"])
+def test_flash_dq_wrapper_rejects_a_bad_o_or_delta(case):
+    """The dq wrapper takes the forward's O (to form Delta) or a Delta,
+    never both or neither, and refuses an O that the kernel cannot read as
+    it refuses dO, and a Delta that is not contiguous float32 [B, H, T]."""
+    q, k, v, o = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 64, seed=15) + _qkv(1, 8, 2, 64,
+                                                                               seed=16)[:1])
+    do = torch.from_numpy(_qkv(1, 8, 2, 64, seed=17)[0])
+    lse = torch.zeros(1, 2, 8)
+    delta = None
+    if case == "o_shape":
+        o = o[:, :4]
+    elif case == "o_dtype":
+        o = o.double()
+    elif case == "o_last_stride":
+        o = o.transpose(1, 3).contiguous().transpose(1, 3)
+    elif case == "o_device":
+        o = torch.empty(o.shape, dtype=o.dtype, device="meta")
+    elif case == "delta_shape":
+        o, delta = None, torch.zeros(1, 2, 4)
+    elif case == "neither":
+        o = None
+    else:
+        delta = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError):
+        fa._check_bwd(q, k, v, do, lse, delta, o)
+    if case in ("neither", "both"):  # on CPU tensors too, before any plain version runs
+        with pytest.raises(ValueError):
+            fa.flash_attention_dq(q, k, v, do, lse, delta, o=o)

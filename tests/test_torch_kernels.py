@@ -109,11 +109,12 @@ def test_flash_attention_function_on_card(dtype):
 
 
 # The bf16 kernels load their tiles by TMA, which fills rows past T with
-# zeros, in tiles of 64 keys (B1, B2 and B3 at D=64 and 128), 64 queries
-# (B1 and B2; B3 at D=64) and 32 queries (B3 at D=128): T on both sides of
-# the first and second tile edges, B=2 with q/k/v strided views of one
-# fused projection, both head dims, causal and not.
-EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 1000]
+# zeros, in tiles of 64 rows (B1; B2 and B3 at D=64; the ring tiles of B2
+# and B3 at D=128) and blocks of 128 rows over two warpgroups (the queries
+# of B2 and the keys of B3 at D=128): T on both sides of the first and
+# second edges of each, B=2 with q/k/v strided views of one fused
+# projection, both head dims, causal and not.
+EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 255, 257, 1000]
 
 
 def _fused_qkv(B, T, D, seed):
@@ -204,6 +205,58 @@ def test_flash_dq_bf16_is_deterministic_on_card():
     torch.cuda.synchronize()
     assert bool(torch.isfinite(first.float()).all())
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_flash_dkv_bf16_d128_is_deterministic_on_card():
+    """B3 at D=128 sums each dK and dV row over the query tiles in a fixed
+    order, each of two warpgroups its own 64 keys, with no atomics: two
+    calls on the same bf16 inputs give bitwise equal dK and dV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    q, k, v, do = _fused_qkv(2, 1000, 128, seed=6)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v)
+    delta = fa._delta(o, do)
+    first = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    second = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_forms_delta_in_dq_on_card(monkeypatch, D, dtype):
+    """On the card the backward never calls the torch Delta (patched here
+    to raise): B2 forms it in its prologue, one launch each of B2 and B3.
+    The Delta that B2 returns matches ``_delta`` to 1e-5 of max |Delta|
+    (both sum dO * O in float32, in another order), and the gradients
+    match the plain backward (tolerances as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    q, k, v, do = (t.to(dt) for t in _fused_qkv(2, 257, D, seed=7 + D))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    want_delta = fa._delta(o, do)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+
+    def no_torch_delta(*args):
+        raise AssertionError("flash_attention_bwd called the torch Delta on the card")
+
+    monkeypatch.setattr(fa, "_delta", no_torch_delta)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    dq, delta = fa.flash_attention_dq(q, k, v, do, lse, o=o)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert delta.dtype == torch.float32 and delta.shape == (2, 12, 257) and delta.is_contiguous()
+    assert _rel_err(delta, want_delta) <= 1e-5
+    assert torch.equal(dq, got[0])
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
 
 
 def _llama_gqa_inputs(T, seed):
