@@ -422,9 +422,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # kernel-vs-plain cases, (T, dtype, causal, D, fused q/k/v): the prefill
 # buckets' range with ragged 100, both dtypes, one non-causal case and
 # D=128 per dtype; then bf16 on both sides of the first and second TMA
-# tile edges (64-row tiles in B1, in B2 and B3 at D=64 and in the rings of
-# B2 and B3 at D=128; 128-row blocks over two warpgroups in B2 and B3 at
-# D=128)
+# tile edges (64-row tiles in B1's K/V ring, in B2 and B3 at D=64 and in
+# the rings of B2 and B3 at D=128; 128-row blocks over two warpgroups in
+# B1 at both head dims and in B2 and B3 at D=128)
 _DTYPES = (torch.bfloat16, torch.float32)
 EDGE_TS = (1, 63, 65, 127, 129, 255, 257, 1000)
 KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]
@@ -463,8 +463,11 @@ def phase_build() -> None:
     for name in KERNEL_SOURCES:
         secs, log = _build.build_info[name]
         print(f"[build] {name}: nvcc {secs:.2f} s", flush=True)
+        # ptxas -v: each kernel's name, registers and spills, and any
+        # "Potential Performance Loss" (C75xx: wgmma serialised)
         for line in log.splitlines():
-            if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
+            if any(w in line.lower() for w in ("entry function", "registers", "spill", "error",
+                                               "warning", "performance loss")):
                 print(f"[build]   {line.strip()}", flush=True)
 
 
@@ -530,14 +533,18 @@ def phase_kernels(card: str) -> dict:
             main_err = (e_o, e_l)
 
     # timing at the largest prefill of the main path: B=1, T=1024, H=12,
-    # D=64, bf16, q/k/v as views of the fused projection
+    # D=64, bf16, q/k/v as views of the fused projection.  A call's device
+    # time (about 15 us) is below its host time (35 to 55 us, the [host]
+    # lines of phase_host_cost), so the device sleeps 25 ms before each run
+    # of 20 calls: at 1 ms the host's enqueueing outlasts the sleep and the
+    # time read is the host's
     B, T, H, D = 1, 1024, 12, 64
     q, k, v = _qkv(T, H, D, torch.bfloat16, True, seed=99)
-    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v), sleep_cycles=50_000_000)
     plain_ms = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v), reps=5, rounds=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+        qt, kt, vt, is_causal=True), sleep_cycles=50_000_000)
     rec = _record("flash_attention_fwd", "serve", (B, T, H, D), ms, plain_ms, library_ms,
                   *_fwd_work(B, T, H, D), main_err[0], max_abs_err_lse=main_err[1])
     _print_record("kernels", rec, card)
@@ -6281,6 +6288,15 @@ try:
         if gpu == (1.0, 1.0):
             break
         time.sleep(0.1)
+    # what a GPU still held after the kill would be: the actor's state in
+    # the new GCS, and whether its process is still there
+    after = get_global_worker().gcs_client.call("get_actor_info", actor._actor_id.binary())
+    res["actor_state_after_kill"] = (after or {}).get("state")
+    try:
+        os.kill(answers[0]["pid"], 0)
+        res["actor_pid_alive_after_kill"] = True
+    except OSError:
+        res["actor_pid_alive_after_kill"] = False
 finally:
     ray_tpu_torch.shutdown()
     for name in ("gcs2", "gcs", "raylet"):
@@ -6363,7 +6379,8 @@ def _gcs_restart_finish(card: str, proc: subprocess.Popen, tmp: str, batch0: tup
                              f"returned {res['blocked_value']}")
     if res["gpu_after"] != [1.0, 1.0]:
         raise AssertionError(f"the GPU is not free after the actor: (available, total) "
-                             f"{res['gpu_after']}")
+                             f"{res['gpu_after']}; the actor {res['actor_state_after_kill']} "
+                             f"in the GCS, its process alive {res['actor_pid_alive_after_kill']}")
     return res
 
 

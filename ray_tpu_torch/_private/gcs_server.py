@@ -589,6 +589,18 @@ class GcsServer:
             self._actor_node_deadline.pop(actor.actor_id, None)
             if actor.actor_id.binary() not in live_actors:
                 await self._on_actor_failure(actor, "actor lost during GCS outage")
+        # ... and the other way: an actor the raylet still hosts that this
+        # GCS has dead was killed while the raylet was away (a ray.kill
+        # between a GCS restart and this registration finds no client to
+        # push to), and its worker would hold its resources for good
+        for aid in live_actors:
+            actor = self.actors.get(ActorID(aid))
+            if actor is not None and actor.state == "DEAD":
+                try:
+                    await client.push("kill_actor", {"actor_id": aid})
+                except Exception:
+                    logger.warning("kill of dead actor %s on node %s failed",
+                                   actor.actor_id.hex()[:8], info.node_id.hex()[:8])
         for oid in payload.get("sealed_objects", ()):
             self.object_locations[bytes(oid)].add(info.node_id)
             self.sealed_ever.add(bytes(oid))

@@ -449,6 +449,7 @@ class RpcClient:
                     raise ConnectionLost(f"cannot connect to {self.address}")
                 time.sleep(delay)
                 continue
+            s = None
             try:
                 if kind == "unix":
                     s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -460,7 +461,12 @@ class RpcClient:
                                     protocol=5)
                 s.sendall(_LEN.pack(len(data)) + data)
                 return s
-            except (ConnectionRefusedError, FileNotFoundError):
+            except (ConnectionRefusedError, FileNotFoundError, BrokenPipeError,
+                    ConnectionResetError):
+                # a listener that is going away can accept and then drop
+                # the hello (a GCS killed mid-reconnect): dial again
+                if s is not None:
+                    s.close()
                 delay = bo.next_delay()
                 if delay is None:
                     raise ConnectionLost(f"cannot connect to {self.address}")
@@ -662,12 +668,26 @@ class ReconnectingRpcClient:
 
     def call(self, method: str, payload: Any = None, timeout: float = _UNSET_TIMEOUT):
         for _ in range(2):
+            inner = self._client()
             try:
-                return self._client().call(method, payload, timeout)
+                return inner.call(method, payload, timeout)
             except ConnectionLost:
                 if self._closed:
                     raise
-                continue  # wait for reconnect, retry once
+                # wait for reconnect, retry once.  A send can fail before
+                # the dead connection's reader has marked it closed and
+                # run the close callback that starts the reconnect: the
+                # retry waits for the reader to end (briefly: a
+                # ConnectionLost that the peer returned leaves the
+                # connection open) rather than fail again on the same
+                # connection
+                reader = inner._reader
+                if reader is not threading.current_thread():
+                    reader.join(timeout=1.0)
+                with self._lock:
+                    if inner._closed and self._inner is inner:
+                        self._ready.clear()  # the close callback's reconnect sets it
+                continue
         raise ConnectionLost(f"connection to {self.address} lost")
 
     def push(self, method: str, payload: Any = None):

@@ -117,17 +117,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 // ---------------------------------------------------------------------------
 constexpr int kMmaThreads = 128;  // one warpgroup
 constexpr int kStages = 2;        // D=64: tile i in the products, tile i+1 in flight
-constexpr int kAtomRow = 128;     // bytes of one 64-column bf16 row: one swizzle atom
 constexpr uint32_t kAtomTile = kTile * kAtomRow;  // bytes of one 64-row atom tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-// D=128: two consumer warpgroups, then the producer warpgroup
-constexpr int kWsThreads = 3 * kMmaThreads;
+// D=128: two consumer warpgroups, then the producer warpgroup (hopper.cuh)
 constexpr int kWsRows = 2 * kTile;                     // the block's own rows
 constexpr uint32_t kWsAtomTile = kWsRows * kAtomRow;   // bytes of one 128-row atom tile
 constexpr int kWsStages = 3;
-constexpr int kConsumerWarps = 2 * kMmaThreads / 32;   // arrivals that release a stage
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
 struct BwdMaps {
   RowsMap q, k, v, dout, o;
@@ -352,23 +348,6 @@ flash_dq_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restri
   }
 }
 
-// The producer's last wait: the consumers' release of the last stages it
-// filled (tiles max(0, n - kWsStages) .. n - 1, `empty` the stages' release
-// barriers).  It returns once every tile is consumed; a consumer stuck on a
-// load that never lands (they wait without a trap) makes it trap instead.
-__device__ __forceinline__ void wait_released(const uint64_t* empty, int n_tiles) {
-  for (int j = max(0, n_tiles - kWsStages); j < n_tiles; ++j)
-    mbar_wait(smem_u32(&empty[j % kWsStages]), (j / kWsStages) & 1);
-}
-
-// 2^x, the MUFU instruction alone (exact to 2 ulp; no denormal fix-up,
-// which exp2f adds: P's entries below 2^-126 are 0 to bf16 anyway)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The CUDA-core steps of the D=128 kernels, lean: the causal and ragged
 // masks only where a tile needs them (`masked`, uniform across the
 // warpgroup: the diagonal tiles and those past T), one LSE and one Delta
@@ -450,24 +429,6 @@ __device__ __forceinline__ void dkv_ds(const float (&pT)[kTile / 2], const float
     }
 }
 
-// 64 rows of a K-major shared tile (128-byte swizzled, [rows][64] atoms
-// `atom` bytes apart; `tile` at the warpgroup's first row) as the register
-// A operands of D/16 k-steps: a[kk] holds rows warp*16 + g and + 8,
-// columns 16 kk + 2 t4 (+1) and + 8 (+9), as hopper.cuh's layout note says
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t tile, uint32_t atom, uint32_t (&a)[D / 16][4],
-                                             int warp, int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = warp * 16 + g + 8 * (e & 1);
-      const int chunk = 2 * (kk % 4) + (e >> 1);
-      const uint32_t addr = tile + (kk / 4) * atom + r * kAtomRow + ((chunk ^ g) << 4) + 4 * t4;
-      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[kk][e]) : "r"(addr) : "memory");
-    }
-}
-
 // ---------------------------------------------------------------------------
 // bf16 dq at D=128: the block owns 128 queries, 64 for each of two consumer
 // warpgroups; the producer loads Q, dO and O once and each 64-key K/V tile
@@ -537,7 +498,7 @@ flash_dq_bf16_ws_kernel(const __grid_constant__ BwdMaps maps, const float* __res
           tma_load_rows(maps.v, stage + (kAtoms + a) * kAtomTile, bar, a * 64, h, j * kTile, b);
         }
       }
-      wait_released(bars + 1 + kWsStages, n_tiles);
+      wait_released<kWsStages>(bars + 1 + kWsStages, n_tiles);
     }
   } else {
     // a consumer warpgroup: 64 queries
@@ -910,7 +871,7 @@ flash_dkv_bf16_ws_kernel(const __grid_constant__ BwdMaps maps, const float* __re
         }
         cp_async_arrive(bar);
       }
-      wait_released(bars + 1 + kWsStages, n_tiles);
+      wait_released<kWsStages>(bars + 1 + kWsStages, n_tiles);
     }
   } else {
     // a consumer warpgroup: 64 keys
@@ -1347,25 +1308,6 @@ cudaError_t make_maps(BwdMaps* m, const Call& c, int q_rows, int kv_rows) {
   if (err == cudaSuccess && c.o != nullptr)
     err = make_rows_map(&m->o, c.o, B, T, c.H, D, st.o[0], st.o[1], st.o[2], q_rows);
   return err;
-}
-
-// The warp-specialised kernels' setmaxnreg hands the producer's registers
-// to the consumers: that needs the block to start with at least
-// (128 x 24 + 256 x 240) / 384 = 168 registers a thread, which ptxas gives
-// a kernel with setmaxnreg and these launch bounds.  Checked once, so that a
-// build that allotted fewer fails the launch instead of stalling the
-// consumers' setmaxnreg.inc forever.
-template <auto Kernel>
-cudaError_t check_ws_registers() {
-  static const cudaError_t checked = [] {
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, Kernel);
-    if (err != cudaSuccess) return err;
-    return attr.numRegs * kWsThreads >= kMmaThreads * (kProducerRegs + 2 * kConsumerRegs)
-               ? cudaSuccess
-               : cudaErrorInvalidConfiguration;
-  }();
-  return checked;
 }
 
 int dq_bf16_64(const Call& c) {

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu): TMA tile loads behind mbarriers, the
 // shared-memory matrix descriptor of wgmma, and the wgmma products
-// themselves, plus the host code that encodes the TMA tensor maps.
+// themselves, the pieces of a warp-specialised block (register hand-over,
+// the producer's last wait, the launch-time register check), plus the host
+// code that encodes the TMA tensor maps.
 //
 // Tiles.  A [B, T, H, D] bf16 tensor is read in boxes of `rows` x 64
 // columns of one (b, h): a 64-column bf16 row is 128 bytes, exactly one
@@ -42,6 +44,15 @@
 namespace hopper {
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr int kAtomRow = 128;      // bytes of one 64-column bf16 row: one swizzle atom
+
+// Warp specialisation: a block of two consumer warpgroups (threads 0..255,
+// 64 rows each) and one producer warpgroup (256..383), one thread of which
+// issues every TMA load into a ring whose stages the consumers release.
+// setmaxnreg moves registers from the producer to the consumers.
+constexpr int kWsThreads = 3 * 128;
+constexpr int kConsumerWarps = 2 * 128 / 32;  // arrivals that release a ring stage
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
 // A [B, T, H, D] bf16 tensor as a TMA map of [rows x 64] boxes.  The three
 // outer dimensions are ordered by stride; `order` says which is which.
@@ -120,6 +131,24 @@ __device__ __forceinline__ void mbar_wait_spin(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// The producer's last wait: the consumers' release of the last stages it
+// filled (tiles max(0, n - Stages) .. n - 1, `empty` the stages' release
+// barriers).  It returns once every tile is consumed; a consumer stuck on a
+// load that never lands (they wait without a trap) makes it trap instead.
+template <int Stages>
+__device__ __forceinline__ void wait_released(const uint64_t* empty, int n_tiles) {
+  for (int j = n_tiles > Stages ? n_tiles - Stages : 0; j < n_tiles; ++j)
+    mbar_wait(smem_u32(&empty[j % Stages]), (j / Stages) & 1);
+}
+
+// 2^x, the MUFU instruction alone (exact to 2 ulp; no denormal fix-up,
+// which exp2f adds: probabilities below 2^-126 are 0 to bf16 anyway)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ int pick(uint32_t order, int dim, int h, int t, int b) {
   const uint32_t which = (order >> (2 * dim)) & 3u;
   return which == 0 ? h : (which == 1 ? t : b);
@@ -135,6 +164,46 @@ __device__ __forceinline__ void tma_load_rows(const RowsMap& m, uint32_t dst, ui
       "l"(reinterpret_cast<uint64_t>(&m.map)), "r"(bar), "r"(col), "r"(pick(m.order, 0, h, t, b)),
       "r"(pick(m.order, 1, h, t, b)), "r"(pick(m.order, 2, h, t, b))
       : "memory");
+}
+
+// the shared tile at `src` (laid out as tma_load_rows lands one) to rows
+// [t, t + rows) x columns [col, col + 64) of head h of batch b, by one
+// thread; TMA writes no row at or past T.  Once issued, commit and wait
+// with tma_store_wait before the tile's shared memory is reused or freed.
+__device__ __forceinline__ void tma_store_rows(const RowsMap& m, uint32_t src, int col, int h,
+                                               int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&m.map)),
+      "r"(src), "r"(col), "r"(pick(m.order, 0, h, t, b)), "r"(pick(m.order, 1, h, t, b)),
+      "r"(pick(m.order, 2, h, t, b))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// makes this thread's writes to shared memory visible to TMA (the async
+// proxy), before the barrier after which one thread stores them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier
+// `id` (0 is __syncthreads')
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// an arrival on barrier `id` that does not wait for it
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // one float from global to shared memory, asynchronously; zero when !valid
@@ -174,6 +243,25 @@ __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// 64 rows of a K-major shared tile (128-byte swizzled, [rows][64] atoms
+// `atom` bytes apart; `tile` at the warpgroup's first row, a multiple of 8
+// rows into its atom) as the register A operands of D/16 k-steps: a[kk]
+// holds rows warp*16 + g and + 8, columns 16 kk + 2 t4 (+1) and + 8 (+9),
+// as the layout note above says
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t tile, uint32_t atom, uint32_t (&a)[D / 16][4],
+                                             int warp, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g + 8 * (e & 1);
+      const int chunk = 2 * (kk % 4) + (e >> 1);
+      const uint32_t addr = tile + (kk / 4) * atom + r * kAtomRow + ((chunk ^ g) << 4) + 4 * t4;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[kk][e]) : "r"(addr) : "memory");
+    }
+}
+
 // shared-memory matrix descriptor, 128-byte swizzle
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
@@ -200,6 +288,15 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for register A operands that an asynchronous product still reads
+template <int M>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory (K-major)
@@ -381,6 +478,25 @@ inline cudaError_t make_rows_map(RowsMap* out, const void* base, int B, int T, i
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A warp-specialised kernel's setmaxnreg hands the producer's registers to
+// the consumers: that needs the block to start with at least
+// (128 x 24 + 256 x 240) / 384 = 168 registers a thread, which ptxas gives
+// a kernel with setmaxnreg and launch bounds of (kWsThreads, 1).  Checked
+// once, so that a build that allotted fewer fails the launch instead of
+// stalling the consumers' setmaxnreg.inc forever.
+template <auto Kernel>
+inline cudaError_t check_ws_registers() {
+  static const cudaError_t checked = [] {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, Kernel);
+    if (err != cudaSuccess) return err;
+    return attr.numRegs * kWsThreads >= 128 * (kProducerRegs + 2 * kConsumerRegs)
+               ? cudaSuccess
+               : cudaErrorInvalidConfiguration;
+  }();
+  return checked;
 }
 
 // Lets Kernel take `bytes` of dynamic shared memory.  The attribute lasts as

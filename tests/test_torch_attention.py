@@ -38,9 +38,12 @@ def _to_bh(a):
     return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, T, D))
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_flash_fwd_matches_pallas_interpret(causal):
-    B, T, H, D = 1, 128, 2, 64
+def test_plain_flash_fwd_matches_pallas_interpret(causal, D):
+    """At both head dims the kernel takes: D=128 is Llama-1B's, whose B1
+    runs a warp-specialised kernel on the card as D=64's does."""
+    B, T, H = 1, 128, 2
     q, k, v = _qkv(B, T, H, D, seed=1)
     out, lse = _flash_fwd_impl(
         _to_bh(q), _to_bh(k), _to_bh(v), block_q=64, block_k=64,

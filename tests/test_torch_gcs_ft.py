@@ -339,3 +339,119 @@ def test_gcs_state_survives_head_node_loss_via_external_redis():
             ray_tpu_torch.shutdown()
         except Exception:
             pass
+
+
+def test_kill_while_raylet_away_reaches_it_on_reregistration(monkeypatch):
+    """A ray.kill that reaches a restarted GCS before the actor's raylet
+    has re-registered finds no client to push the kill to: the GCS marks
+    the actor DEAD at once, and when the raylet registers with the actor
+    among its live ones, the GCS tells it to kill the worker then (else
+    the worker holds its resources, a GPU in chip_smoke.py's GCS drill,
+    for good).  The port's own fix; an in-process GCS, no sockets."""
+    import asyncio
+
+    from ray_tpu_torch._private import gcs_server
+    from ray_tpu_torch._private.common import ActorInfo
+    from ray_tpu_torch._private.ids import ActorID, JobID, NodeID
+
+    pushes = []
+
+    class NodeClient:  # the GCS's client to the raylet
+        def __init__(self, address, peer_name=None):
+            pass
+
+        async def connect(self):
+            pass
+
+        async def push(self, method, payload):
+            pushes.append((method, payload))
+
+    class Conn:
+        meta = {}
+
+    monkeypatch.setattr(gcs_server.rpc, "AsyncRpcClient", NodeClient)
+    loop = asyncio.new_event_loop()
+    try:
+        srv = gcs_server.GcsServer("127.0.0.1:0", {"session_dir": ""}, loop=loop)
+        node_id, job_id = NodeID.from_random(), JobID.from_int(1)
+        killed, kept = ActorID.of(job_id), ActorID.of(job_id)
+        for aid in (killed, kept):
+            srv.actors[aid] = ActorInfo(actor_id=aid, name=None, namespace="", class_name="A",
+                                        state="ALIVE", node_id=node_id)
+        loop.run_until_complete(
+            srv.rpc_kill_actor({"actor_id": killed.binary(), "no_restart": True}, Conn()))
+        assert srv.actors[killed].state == "DEAD" and pushes == []
+        payload = {"node_id": node_id.binary(), "raylet_address": "unix:/nowhere",
+                   "object_store_dir": "", "resources_total": {"CPU": 2.0, "GPU": 1.0},
+                   "live_actors": [killed.binary(), kept.binary()]}
+        loop.run_until_complete(srv.rpc_register_node(payload, Conn()))
+        assert pushes == [("kill_actor", {"actor_id": killed.binary()})]
+        assert srv.actors[kept].state == "ALIVE"
+    finally:
+        loop.close()
+
+
+def test_gcs_client_retry_waits_for_the_reconnect(monkeypatch):
+    """A call whose send fails on a GCS that just died can run before the
+    dead connection's reader has closed it and started the reconnect: the
+    driver's client then retried on the same dead connection and raised
+    (a drill's new function failed during the GCS outage).  The retry now
+    waits for the reconnect and lands on the new connection.  The port's
+    own fix; fake connections, no sockets."""
+    from ray_tpu_torch._private import rpc
+
+    made = []
+
+    class Conn:  # connection n: 0 dies on its first call, later ones answer
+        def __init__(self, address, on_push=None, on_close=None, peer_name=""):
+            self.on_close, self.n, self._closed = on_close, len(made), False
+            made.append(self)
+
+        def _reader_notices(self):
+            self._closed = True
+            self.on_close()
+
+        def call(self, method, payload, timeout):
+            if self.n == 0:  # the reader ends 0.2 s after the send fails
+                self._reader = threading.Timer(0.2, self._reader_notices)
+                self._reader.start()
+                raise rpc.ConnectionLost("send failed: broken pipe")
+            return (method, self.n)
+
+    monkeypatch.setattr(rpc, "RpcClient", Conn)
+    client = rpc.ReconnectingRpcClient("unix:/nowhere")
+    assert client.call("kv_put") == ("kv_put", 1)
+    client.close()
+
+
+def test_dial_retries_a_hello_the_listener_dropped(monkeypatch):
+    """A GCS killed while a client redials can accept the connection and
+    drop it before the client's hello is sent: the send's BrokenPipeError
+    escaped the dial and ended a worker's reconnect thread for good (its
+    tasks then waited on a GCS it never reached again).  The dial now
+    retries it.  The port's own fix; a fake socket."""
+    from ray_tpu_torch._private import rpc
+
+    sent = []
+
+    class Sock:
+        def __init__(self, *args):
+            pass
+
+        def connect(self, target):
+            pass
+
+        def sendall(self, data):
+            if not sent:
+                sent.append("dropped")
+                raise BrokenPipeError(32, "Broken pipe")
+            sent.append("hello")
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(rpc.socket, "socket", Sock)
+    client = rpc.RpcClient.__new__(rpc.RpcClient)  # the dial alone, no reader
+    client.address, client.peer_name = "unix:/nowhere", ""
+    assert isinstance(client._connect(), Sock)
+    assert sent == ["dropped", "hello"]

@@ -109,11 +109,14 @@ def test_flash_attention_function_on_card(dtype):
 
 
 # The bf16 kernels load their tiles by TMA, which fills rows past T with
-# zeros, in tiles of 64 rows (B1; B2 and B3 at D=64; the ring tiles of B2
-# and B3 at D=128) and blocks of 128 rows over two warpgroups (the queries
-# of B2 and the keys of B3 at D=128): T on both sides of the first and
-# second edges of each, B=2 with q/k/v strided views of one fused
-# projection, both head dims, causal and not.
+# zeros, in tiles of 64 rows (B1's K/V ring; B2 and B3 at D=64; the ring
+# tiles of B2 and B3 at D=128) and blocks of 128 rows over two warpgroups
+# (B1's queries at both head dims, stored by TMA, which writes no row past
+# T; the queries of B2 and the keys of B3 at D=128): T on both sides of the
+# first and second edges of each, B=2 with q/k/v strided views of one fused
+# projection, both head dims, causal and not.  In B1, T = 1, 31, 33 and 63
+# leave the second consumer warpgroup no valid row and T = 65 one;
+# 127/129 and 255/257 cover the block edges.
 EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 255, 257, 1000]
 
 
@@ -189,6 +192,23 @@ def test_flash_bf16_head_major_views_on_card(T):
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert _rel_err(a, b) <= BWD_TOL["bfloat16"], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_bf16_is_deterministic_on_card(D):
+    """B1 sums each O row over the key tiles in a fixed order within one
+    warpgroup, with no atomics: two calls on the same bf16 inputs give
+    bitwise equal O and LSE."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    q, k, v, _ = _fused_qkv(2, 1000, D, seed=4 + D)
+    first = fa.flash_attention_fwd(q, k, v)
+    second = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
