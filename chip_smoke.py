@@ -55,6 +55,23 @@ and prints no result line):
                   finite, falling loss and B1 32, B2 16, B3 16 launches a
                   step; step time, tokens/s, MFU, peak memory, and one
                   step under torch.profiler.
+11b. wide heads — the head dims 192 and 256, which the reference's
+                  _use_pallas sends to its Pallas kernels too: B1, B2 and
+                  B3 held against their plain versions at [1, 4096, 8, D]
+                  bf16 causal (k and v of one KV head repeated to 8; the
+                  training shape's tolerances, B1's O row by row with a
+                  planted fault) and timed there; head dim 192 through the
+                  Llama training step (2 layers of d_model 1536, 8 heads
+                  over 1 KV head: no model of the repo has it), 2 steps
+                  with their launches counted; then Llama at Gemma-2B's
+                  widths (d_model 2048, 8 heads over 1 KV head of 256,
+                  d_ff 16384, vocab 256000): one float32 AdamW step of 2
+                  layers (vocabulary cut to 32000, T=256) card vs CPU, and
+                  18 layers, f32 params, bf16 compute, remat, B=1, T=4096,
+                  3 warm-up and 10 timed steps with a finite, falling loss
+                  and B1 36, B2 18, B3 18 launches a step; step time,
+                  tokens/s, MFU, peak memory, one step under
+                  torch.profiler.
 12. resnet      — one float32 SGD-momentum step at resnet18's widths card
                   vs CPU (loss, gradients, parameters, new running
                   statistics); ResNet-50 at bench_resnet.py's configuration
@@ -424,7 +441,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # D=128 per dtype; then bf16 on both sides of the first and second TMA
 # tile edges (64-row tiles in B1's K/V ring, in B2 and B3 at D=64 and in
 # the rings of B2 and B3 at D=128; 128-row blocks over two warpgroups in
-# B1 at both head dims and in B2 and B3 at D=128)
+# B1 at both head dims and in B2 and B3 at D=128); then D=192 and 256 at a
+# ragged T past the second 128-row block, both dtypes, causal and not
 _DTYPES = (torch.bfloat16, torch.float32)
 EDGE_TS = (1, 63, 65, 127, 129, 255, 257, 1000)
 KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in _DTYPES]
@@ -432,7 +450,9 @@ KERNEL_CASES = ([(T, dt, True, 64, True) for T in (8, 100, 256, 1024) for dt in 
                 + [(256, dt, True, 128, False) for dt in _DTYPES]
                 + [(T, torch.bfloat16, True, 64, True) for T in EDGE_TS]
                 + [(T, torch.bfloat16, False, 128, True) for T in EDGE_TS]
-                + [(T, torch.bfloat16, True, 128, True) for T in (129, 257)])
+                + [(T, torch.bfloat16, True, 128, True) for T in (129, 257)]
+                + [(257, dt, c, D, False) for D in (192, 256) for dt in _DTYPES
+                   for c in (True, False)])
 
 
 def _card() -> str:
@@ -1283,11 +1303,12 @@ LLAMA_B, LLAMA_T = 4, 4096  # llama_1b's max_seq_len: 16,384 tokens a step
 LLAMA_VOCAB = 32000
 
 
-def _gqa_inputs(B: int, T: int, seed: int):
-    """Llama-1B's attention inputs on the card in bf16: q [B, T, 16, 128],
-    k and v drawn for its 8 KV heads and repeated to 16 as LlamaAttention
-    repeats them (contiguous), and dO [B, T, 16, 128]."""
-    cfg = llama.LlamaConfig.llama_1b()
+def _gqa_inputs(B: int, T: int, seed: int, cfg=None):
+    """A Llama config's attention inputs on the card in bf16 (Llama-1B's by
+    default): q [B, T, n_head, d_head], k and v drawn for its KV heads and
+    repeated to n_head as LlamaAttention repeats them (contiguous), and
+    dO [B, T, n_head, d_head]."""
+    cfg = cfg or llama.LlamaConfig.llama_1b()
     rep = cfg.n_head // cfg.n_kv_head
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1387,8 +1408,10 @@ def _profile_step(run, steps: int = 1) -> dict:
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-        # each kernel's bf16 instantiations: flash_dq_bf16_kernel<64> and the
-        # warp-specialised flash_dq_bf16_ws_kernel<128> both count as B2
+        # each kernel's bf16 instantiations: flash_dq_bf16_kernel<64> (and
+        # <192>, <256>) and the warp-specialised flash_dq_bf16_ws_kernel<128>
+        # all count as B2, B3's two launches at D=192 and 256
+        # (flash_dkv_bf16_kernel<D, 1> and <D, 2>) as B3
         "flash_ms_per_step": {
             name: ms([e for e in kernels if name[:-len("_kernel")] in e.key])
             for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
@@ -1461,6 +1484,166 @@ def phase_llama_train(card: str) -> dict:
         print(f"[llama train]   {k['ms_per_step']:9.3f} ms/step  x{k['count']:5d}  {k['name']}",
               flush=True)
     print("[llama train] " + json.dumps(res), flush=True)
+    return res
+
+
+# ----------------------------------------------------------------------
+# Head dims 192 and 256: the kernels behind a one-KV-head repeat, a Llama
+# at head dim 192, and the training path of a Llama at Gemma-2B's widths
+# ----------------------------------------------------------------------
+WIDE_B, WIDE_T = 1, 4096  # the Gemma-widths path's batch and sequence
+WIDE_HEADS = 8  # query heads over one KV head, as Gemma-2B's attention
+D192_STEPS = 2
+
+
+def _gemma_2b_widths(**kw) -> llama.LlamaConfig:
+    """Gemma-2B's published widths (https://huggingface.co/google/gemma-2b,
+    config.json: hidden 2048, 8 attention heads over 1 KV head of head_dim
+    256, intermediate 16384, 18 layers, vocab 256000, rope_theta 10000) as
+    the port's Llama: SwiGLU, an untied lm_head, RMSNorm's w scale and no
+    sqrt(d) embedding scale, so it is Llama at those widths, not Gemma.
+    f32 params, bf16 compute and remat by default, as llama_1b."""
+    return llama.LlamaConfig(**{"vocab_size": 256000, "n_layer": 18, "n_head": 8,
+                                "n_kv_head": 1, "d_model": 2048, "d_ff": 16384,
+                                "rope_theta": 10000.0, **kw})
+
+
+def _d192_drive(card: str) -> dict:
+    """Head dim 192 through the Llama training step: no model of the repo
+    (nor a public Llama-style one) has it, so a 2-layer Llama of d_model
+    1536, 8 heads over 1 KV head of 192, d_ff 8192, vocab 32000, f32
+    params, bf16 compute, remat, B=1, T=4096, takes D192_STEPS AdamW steps
+    with the launch counts set to 0 just before and read just after (B1
+    twice a layer a step, B2 and B3 once); the losses must be finite."""
+    cfg = llama.LlamaConfig(vocab_size=LLAMA_VOCAB, n_layer=2, n_head=WIDE_HEADS, n_kv_head=1,
+                            d_model=1536, d_ff=8192)
+    model = llama.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = llama.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr=TRAIN_LR))
+    tokens, targets = _train_batch(WIDE_B, WIDE_T, seed=8, device="cuda", vocab=LLAMA_VOCAB)
+    _reset_counts()
+    losses = [step(model, tokens, targets).item() for _ in range(D192_STEPS)]
+    launches = _launch_counts()
+    L = cfg.n_layer
+    want = (2 * L * D192_STEPS, L * D192_STEPS, L * D192_STEPS)
+    if launches != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"head dim 192 Llama step: launches {launches} (expected {want}), "
+                             f"losses {losses}")
+    print(f"[wide heads] head dim 192 through the Llama step (2 layers, d_model 1536, 8 heads "
+          f"over 1 KV head, B={WIDE_B} T={WIDE_T}): losses {losses}, launches B1/B2/B3 "
+          f"{launches} = ({2 * L}, {L}, {L}) x {D192_STEPS} — {card}", flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(zip(("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"),
+                    launches))
+
+
+def phase_wide_kernels(card: str) -> dict:
+    """B1, B2 and B3 at the head dims 256 (Gemma-2B's) and 192, [1, 4096, 8,
+    D] bf16 causal behind a one-KV-head repeat: held against their plain
+    versions (the training shape's tolerances, relative for the gradients),
+    then timed there; then head dim 192 through the Llama training step.
+    Returns {256: records, 192: records}: the D=192 records carry that
+    drive's launches, the D=256 ones are filled in by phase_gemma_train."""
+    recs = {}
+    for D in (256, 192):
+        heads = llama.LlamaConfig(n_head=WIDE_HEADS, n_kv_head=1, d_model=WIDE_HEADS * D)
+        q, k, v, do = _gqa_inputs(WIDE_B, WIDE_T, 600 + D, heads)
+        label = f"head dim {D} attention"
+        errs = _hold_bf16_kernels("wide heads", label, "k/v of 1 KV head repeated to 8",
+                                  q, k, v, do)
+        torch.cuda.empty_cache()
+        recs[D] = _time_bf16_kernels("wide heads", "gemma_widths_train" if D == 256 else
+                                     "llama_d192", q, k, v, do, errs, card, plain_reps=1)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    launches = _d192_drive(card)
+    for rec in recs[192]:
+        rec["launches"] = launches[rec["name"]]
+    return recs
+
+
+def phase_gemma_parity(card: str) -> dict:
+    """One float32 AdamW step at Gemma-2B's widths and 2 of its layers, B=1,
+    T=256, on the card (the kernels at D=256) and on the CPU, phase 8's
+    rule.  The vocabulary is cut to 32000: at 256000 rows the CPU side
+    would hold about 20 GB of f32 weights, gradients and moments."""
+    cfg = _gemma_2b_widths(vocab_size=LLAMA_VOCAB, n_layer=2, dtype=torch.float32, remat=False)
+    cpu = llama.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    res = _adamw_step_parity(
+        "gemma-widths parity", "Llama at Gemma-2B's widths x 2 layers, vocab cut to 32000, f32 "
+        "B=1 T=256", cpu,
+        lambda m: llama.make_train_step(cfg, gpt2.make_adamw(m.parameters(), TRAIN_LR)),
+        _train_batch(1, 256, seed=9, device="cpu", vocab=LLAMA_VOCAB), TRAIN_LR, card,
+        fwd_launches=cfg.n_layer)
+    res["cuts"] = {"n_layer": "18 -> 2", "vocab_size": "256000 -> 32000", "T": 256}
+    return res
+
+
+def phase_gemma_train(card: str) -> dict:
+    """Llama at Gemma-2B's widths and depth (_gemma_2b_widths), float32
+    params with bfloat16 compute and remat, B=1, T=4096, AdamW at bench.py's
+    hyperparameters, driven through make_train_step with the launch counts
+    set to 0 just before and read just after (B1 twice a layer, B2 and B3
+    once, all at head dim 256); then one step under torch.profiler."""
+    torch.cuda.empty_cache()
+    cfg = _gemma_2b_widths()
+    model = llama.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = llama.make_train_step(cfg, gpt2.make_adamw(model.parameters(), lr=TRAIN_LR))
+    tokens, targets = _train_batch(WIDE_B, WIDE_T, seed=10, device="cuda", vocab=cfg.vocab_size)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_counts()
+    losses, wall = _run_steps("Gemma-widths training", step, model, (tokens, targets))
+    launches = _launch_counts()
+    L = cfg.n_layer
+    want = (2 * L * n_steps, L * n_steps, L * n_steps)
+    if launches != want:
+        raise AssertionError(f"Gemma-widths launches (B1, B2, B3) {launches} over {n_steps} "
+                             f"steps, expected {want}: B1 twice a layer (remat), B2 and B3 once")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = WIDE_B * WIDE_T * TRAIN_STEPS / wall
+    n_params = llama.num_params(model)
+    flops_tok = _llama_flops_per_token(cfg, n_params, WIDE_T)
+    mfu = tok_s * flops_tok / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    prof = _profile_step(lambda: step(model, tokens, targets))
+    flash = prof["flash_ms_per_step"]
+    res = {
+        "config": f"Llama at Gemma-2B's widths (18 layers, d_model 2048, 8 heads over 1 KV head "
+                  f"of 256, d_ff 16384, vocab 256000), float32 params, bfloat16 compute, "
+                  f"remat=True, B={WIDE_B}, T={WIDE_T}, AdamW lr {TRAIN_LR}",
+        "params": n_params,
+        "losses": losses,
+        "step_ms": step_ms,
+        "tokens_per_s": tok_s,
+        "flops_per_token": flops_tok,
+        "mfu": mfu,
+        "peak_memory_gb": peak_gb,
+        "launches": {"flash_attention_fwd": launches[0], "flash_attention_dq": launches[1],
+                     "flash_attention_dkv": launches[2], "steps": n_steps},
+        **prof,
+        "card": card,
+    }
+    print(f"[gemma-widths train] Llama at Gemma-2B's widths, bf16 compute / f32 params, remat, "
+          f"B={WIDE_B} T={WIDE_T} ({n_params} params): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {n_steps} steps; step {step_ms:.2f} ms (mean of "
+          f"{TRAIN_STEPS} timed steps), {tok_s:.0f} tok/s, MFU {mfu:.4f} at "
+          f"{flops_tok / 1e9:.4f} GFLOP/token; peak memory {peak_gb:.2f} GB; launches "
+          f"B1/B2/B3 {launches} = ({2 * L}, {L}, {L}) x {n_steps} — {card}", flush=True)
+    print(f"[gemma-widths train] profiled step: {res['profiled_step_ms']:.2f} ms, device busy "
+          f"{res['device_busy_ms_per_step']:.2f} ms, idle share {res['device_idle_share']:.4f}; "
+          f"by kind {_fmt_ms(res['device_ms_by_kind'])}; flash per step: fwd "
+          f"{flash['flash_fwd_bf16_kernel']:.3f} ms, dq {flash['flash_dq_bf16_kernel']:.3f} ms, "
+          f"dkv {flash['flash_dkv_bf16_kernel']:.3f} ms — {card}", flush=True)
+    for k in res["top_kernels"]:
+        print(f"[gemma-widths train]   {k['ms_per_step']:9.3f} ms/step  x{k['count']:5d}  "
+              f"{k['name']}", flush=True)
+    print("[gemma-widths train] " + json.dumps(res), flush=True)
+    del model, step
+    torch.cuda.empty_cache()
     return res
 
 
@@ -6445,6 +6628,11 @@ def main() -> int:
     llama_train = timed("llama train", phase_llama_train, card)
     for rec in llama_recs:
         rec["launches"] = llama_train["launches"][rec["name"]]
+    wide_recs = timed("wide kernels", phase_wide_kernels, card)
+    timed("gemma-widths parity", phase_gemma_parity, card)
+    gemma_train = timed("gemma-widths train", phase_gemma_train, card)
+    for rec in wide_recs[256]:
+        rec["launches"] = gemma_train["launches"][rec["name"]]
     timed("resnet", phase_resnet, card)
     timed("vit", phase_vit, card)
     timed("mlp", phase_mlp, card)
@@ -6482,7 +6670,8 @@ def main() -> int:
     print(f"[timing] every phase (s): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"the script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [fwd_rec, static_rec, *train_recs, *llama_recs,
-                                  *data["kernels"], *sharded["kernels"], *pipeline["kernels"]]}),
+                                  *wide_recs[256], *wide_recs[192], *data["kernels"],
+                                  *sharded["kernels"], *pipeline["kernels"]]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 One entry point for the models: ``causal_attention`` takes ``[B, T, H, D]``
 q, k, v and is differentiable.  For the head dims the hand-written flash
-kernels take (64 and 128) it runs ``flash_attention``
+kernels take (64, 128, 192 and 256, those the reference's ``_use_pallas``
+sends to its Pallas kernels) it runs ``flash_attention``
 (``ops/flash_attention.py``: the forward, and the dq and dkv kernels in the
 backward), which launches the kernels on the card and their plain
 versions on the CPU.  Every other head dim takes the einsum path

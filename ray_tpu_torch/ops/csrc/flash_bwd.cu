@@ -75,10 +75,23 @@
 // Ordering the two consumers' products by named barriers ("ping-pong") was
 // measured and moved nothing, so they run unordered; the gradients are
 // written from registers, not by TMA.
+//   D=192 and 256 (the reference's _use_pallas takes every D % 64 == 0 up
+//       to 256): the warp-specialised layouts do not fit in 227 KB of
+//       shared memory, so both kernels take D=64's single-warpgroup layout
+//       with 64 rows a block (B2 148 and 197 KB, B3 151 and 200 KB), their
+//       score products reading both operands from shared memory and the
+//       gradient products issued as 128-column wgmma (hopper.cuh
+//       wgmma_rs_tb_wide).  B2's dQ accumulator takes 96 or 128 registers
+//       a thread of the 255 a 128-thread block has.  B3's dK and dV
+//       accumulators together would take 192 or 256, so B3 is two
+//       launches of one accumulator each: dV (S^T, then P^T dO), then dK
+//       (S^T and dP^T, then dS^T Q); S^T is computed twice, and each sum
+//       keeps its fixed order.  A simple layout, kept for being right:
+//       what it costs against the bound is in PERF.md.
 //
 // In f32 both kernels do their arithmetic on the CUDA cores (67 TFLOP/s),
 // the simple version kept for f32 parity with the reference; B2's prologue
-// forms Delta there too.
+// forms Delta there too.  A block owns 64 rows, 32 at D=256 (f32_rows).
 //
 // Layout.  q, k, v, dO and O are [B, T, H, D], read through the strides the
 // wrapper passes (last dimension contiguous; in bf16 16-byte-aligned
@@ -87,7 +100,7 @@
 // copy.  LSE and Delta are contiguous [B, H, T] f32.  dQ, dK, dV are written
 // contiguous [B, T, H, D] in the input type, each rounded once from its f32
 // sum.  Any T >= 1: rows at or past T are loaded as zeros (by TMA in bf16),
-// masked, and not written; D in {64, 128}.
+// masked, and not written; D in {64, 128, 192, 256}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -212,8 +225,12 @@ __device__ __forceinline__ void dq_scores_to_ds(const float (&s)[kTile / 2],
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dq at D=64: the block (one warpgroup) owns 64 queries.  Q, dO and,
-// for Delta, O arrive once; K and V of each 64-key tile through the ring.
+// bf16 dq at D=64, 192 and 256: the block (one warpgroup) owns 64 queries.
+// Q, dO and, for Delta, O arrive once; K and V of each 64-key tile through
+// the ring.  At D=192 and 256 the warp-specialised layout of D=128 does not
+// fit (Q, dO and O of 128 rows and three K/V stages would be 289 and 385
+// KB of shared memory); this one is 148 and 197 KB, and its dQ accumulator
+// takes 96 or 128 registers a thread of the 255 a 128-thread block allows.
 // ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t dq_bf16_smem() {
@@ -327,7 +344,7 @@ flash_dq_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restri
     fence_operand(acc);
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_rs_tb(acc, ads[kk], desc_sw128(sK + kk * 16 * kAtomRow, kAtomTile, 1024));
+      wgmma_rs_tb_wide<D>(acc, ads[kk], sK + kk * 16 * kAtomRow, kAtomTile);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(acc);
@@ -594,8 +611,10 @@ flash_dq_bf16_ws_kernel(const __grid_constant__ BwdMaps maps, const float* __res
 // The CUDA-core step of B3 on one 64-key x 64-query tile, in place: P^T =
 // exp(S^T scale - LSE) on the unmasked entries and dS^T = P^T (dP^T -
 // Delta) scale, LSE and Delta indexing the columns, each rounded to bf16
-// pairs as the A operands of dV += P^T dO and dK += dS^T Q (the
-// reference's Pallas kernel keeps P and dS in f32).
+// pairs as the A operands of dV += P^T dO (kDV) and dK += dS^T Q (kDK;
+// dP^T is read only then).  The reference's Pallas kernel keeps P and dS
+// in f32.
+template <bool kDV, bool kDK>
 __device__ __forceinline__ void dkv_scores(float (&sT)[kTile / 2],
                                            float (&dpT)[kTile / 2], uint32_t (&ap)[4][4],
                                            uint32_t (&ads)[4][4], const float* lse_s,
@@ -609,21 +628,32 @@ __device__ __forceinline__ void dkv_scores(float (&sT)[kTile / 2],
     const int kpos = key[(i >> 1) & 1];
     const bool valid = query < T_len && kpos < T_len && (!causal || kpos <= query);
     const float p = valid ? exp2f(sT[i] * scale_log2 - lse_s[qi] * kLog2e) : 0.f;
-    dpT[i] = p * (dpT[i] - delta_s[qi]) * scale;
+    if constexpr (kDK) dpT[i] = p * (dpT[i] - delta_s[qi]) * scale;
     sT[i] = p;
   }
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      ap[kk][e] = pack_bf16(sT[8 * kk + 2 * e], sT[8 * kk + 2 * e + 1]);
-      ads[kk][e] = pack_bf16(dpT[8 * kk + 2 * e], dpT[8 * kk + 2 * e + 1]);
+      if constexpr (kDV) ap[kk][e] = pack_bf16(sT[8 * kk + 2 * e], sT[8 * kk + 2 * e + 1]);
+      if constexpr (kDK) ads[kk][e] = pack_bf16(dpT[8 * kk + 2 * e], dpT[8 * kk + 2 * e + 1]);
     }
 }
 
+// what a launch of the single-warpgroup dkv kernel computes
+constexpr int kOutDV = 1, kOutDK = 2;
+
 // ---------------------------------------------------------------------------
-// bf16 dkv at D=64: the block (one warpgroup) owns 64 keys.  K and V
-// arrive once; Q, dO, LSE and Delta of each 64-query tile through the ring.
+// bf16 dkv at D=64, 192 and 256: the block (one warpgroup) owns 64 keys.  K
+// and V arrive once; Q, dO, LSE and Delta of each 64-query tile through the
+// ring.  At D=64 one launch computes dK and dV (kOut = kOutDV | kOutDK).
+// At D=192 and 256 the two accumulators of 64 keys would take 192 and 256
+// registers a thread, beside the score tiles: dV and dK are two launches,
+// the first recomputing S^T for dV += P^T dO (V is not loaded), the
+// second S^T and dP^T for dK += dS^T Q, each with one accumulator.  Both
+// sum over the query tiles in a fixed order, so dK and dV stay
+// deterministic; the price is S^T computed twice, five products for
+// four.
 // ---------------------------------------------------------------------------
 // Q and dO tiles, then the tile's LSE and Delta, rounded up to keep the
 // next stage's tiles 1024-byte aligned
@@ -637,11 +667,13 @@ constexpr size_t dkv_bf16_smem() {
   return 1024 + 2 * (D / 64) * kAtomTile + kStages * dkv_stage_bytes<D>();
 }
 
-template <int D>
+template <int D, int kOut>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_dkv_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int H, int T_len, int causal, float scale) {
+  constexpr bool kDV = (kOut & kOutDV) != 0;
+  constexpr bool kDK = (kOut & kOutDK) != 0;  // dK needs dP^T = V dO^T: V is loaded
   constexpr int kAtoms = D / 64;
   constexpr uint32_t kStage = dkv_stage_bytes<D>();
   constexpr uint32_t kStageTx = 2 * kAtoms * kAtomTile;  // the TMA bytes of a stage
@@ -700,19 +732,22 @@ flash_dkv_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restr
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(kv_bar, 2 * kAtoms * kAtomTile);
+    mbar_expect_tx(kv_bar, (kDK ? 2 : 1) * kAtoms * kAtomTile);
 #pragma unroll
     for (int a = 0; a < kAtoms; ++a) {
       tma_load_rows(maps.k, sK + a * kAtomTile, kv_bar, a * 64, h, k0, b);
-      tma_load_rows(maps.v, sV + a * kAtomTile, kv_bar, a * 64, h, k0, b);
+      if constexpr (kDK) tma_load_rows(maps.v, sV + a * kAtomTile, kv_bar, a * 64, h, k0, b);
     }
   }
   for (int i = 0; i < kStages && i < n_tiles; ++i) issue_q(i);
 
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[kDK ? D / 2 : 1], dv_acc[kDV ? D / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) {
+    if constexpr (kDK) dk_acc[i] = 0.f;
+    if constexpr (kDV) dv_acc[i] = 0.f;
+  }
   const float scale_log2 = scale * kLog2e;
 
   mbar_wait(kv_bar, 0);
@@ -732,34 +767,36 @@ flash_dkv_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restr
       const uint32_t off = (kk / 4) * kAtomTile + (kk % 4) * 32;  // 16 bf16 within the atom
       wgmma_ss(sT, desc_sw128(sK + off, 16, 1024), desc_sw128(sQ + off, 16, 1024), kk > 0);
     }
+    if constexpr (kDK) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kAtomTile + (kk % 4) * 32;
-      wgmma_ss(dpT, desc_sw128(sV + off, 16, 1024), desc_sw128(sdO + off, 16, 1024), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kAtomTile + (kk % 4) * 32;
+        wgmma_ss(dpT, desc_sw128(sV + off, 16, 1024), desc_sw128(sdO + off, 16, 1024), kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(sT);
-    fence_operand(dpT);
+    if constexpr (kDK) fence_operand(dpT);
 
     uint32_t ap[kTile / 16][4], ads[kTile / 16][4];
-    dkv_scores(sT, dpT, ap, ads, lse_s, lse_s + kTile, q_begin + it * kTile, t4, key, T_len,
-               causal, scale, scale_log2);
+    dkv_scores<kDV, kDK>(sT, dpT, ap, ads, lse_s, lse_s + kTile, q_begin + it * kTile, t4, key,
+                         T_len, causal, scale, scale_log2);
 
     // dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers, dO and Q
     // read MN-major through the descriptor's transpose bit
     wgmma_fence();
-    fence_operand(dv_acc);
-    fence_operand(dk_acc);
+    if constexpr (kDV) fence_operand(dv_acc);
+    if constexpr (kDK) fence_operand(dk_acc);
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
-      wgmma_rs_tb(dv_acc, ap[kk], desc_sw128(sdO + kk * 16 * kAtomRow, kAtomTile, 1024));
-      wgmma_rs_tb(dk_acc, ads[kk], desc_sw128(sQ + kk * 16 * kAtomRow, kAtomTile, 1024));
+      if constexpr (kDV) wgmma_rs_tb_wide<D>(dv_acc, ap[kk], sdO + kk * 16 * kAtomRow, kAtomTile);
+      if constexpr (kDK) wgmma_rs_tb_wide<D>(dk_acc, ads[kk], sQ + kk * 16 * kAtomRow, kAtomTile);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_operand(dv_acc);
-    fence_operand(dk_acc);
+    if constexpr (kDV) fence_operand(dv_acc);
+    if constexpr (kDK) fence_operand(dk_acc);
 
     __syncthreads();  // every warp is done with this stage: refill it
     if (it + kStages < n_tiles) issue_q(it + kStages);
@@ -772,10 +809,12 @@ flash_dkv_bf16_kernel(const __grid_constant__ BwdMaps maps, const float* __restr
     const long long at = ((static_cast<long long>(b) * T_len + t) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+      if constexpr (kDK)
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8 + 2 * t4) =
+            __floats2bfloat162_rn(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
+      if constexpr (kDV)
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8 + 2 * t4) =
+            __floats2bfloat162_rn(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
     }
   }
 }
@@ -972,13 +1011,20 @@ flash_dkv_bf16_ws_kernel(const __grid_constant__ BwdMaps maps, const float* __re
 // j + 32c.  Tiles a lane reads by row are padded to D + 1 floats.
 // ---------------------------------------------------------------------------
 constexpr int kF32Threads = 256;
-constexpr int kRowsPerWarp = 8;
 
-// rows [t0, t0 + 64) of one head into a shared tile of row stride `ld`
+// The rows a block owns (queries in dq, keys in dkv): 64, but 32 at D=256,
+// where 64 of them beside the other side's padded 64-row tiles would be
+// 279 KB (dq) and 296 KB (dkv) of shared memory
 template <int D>
+__host__ __device__ constexpr int f32_rows() {
+  return D == 256 ? 32 : kTile;
+}
+
+// rows [t0, t0 + Rows) of one head into a shared tile of row stride `ld`
+template <int D, int Rows>
 __device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src, long long st,
                                               int t0, int T_len, int tid) {
-  for (int i = tid; i < kTile * D; i += kF32Threads) {
+  for (int i = tid; i < Rows * D; i += kF32Threads) {
     const int r = i / D, d = i - r * D, t = t0 + r;
     dst[r * ld + d] = t < T_len ? src[t * st + d] : 0.f;
   }
@@ -986,8 +1032,9 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* s
 
 template <int D>
 constexpr size_t dq_f32_smem() {
-  // Q, dO [64][D]; dS [64][64]; K, V [64][D + 1]
-  return sizeof(float) * (2 * kTile * D + kTile * kTile + 2 * kTile * (D + 1));
+  // Q, dO [rows][D]; dS [rows][64]; K, V [64][D + 1]
+  constexpr int kRows = f32_rows<D>();
+  return sizeof(float) * (2 * kRows * D + kRows * kTile + 2 * kTile * (D + 1));
 }
 
 template <int D>
@@ -998,17 +1045,19 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ delta, int delta_out, float* __restrict__ dq, int H,
                     int T_len, int causal, float scale, Strides st) {
   constexpr int kCols = D / 32;
+  constexpr int kRows = f32_rows<D>();
+  constexpr int kRowsPerWarp = kRows / (kF32Threads / 32);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + kTile * D;
-  float* dSs = dOs + kTile * D;
-  float* Ks = dSs + kTile * kTile;
+  float* dOs = Qs + kRows * D;
+  float* dSs = dOs + kRows * D;
+  float* Ks = dSs + kRows * kTile;
   float* Vs = Ks + kTile * (D + 1);
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -1016,8 +1065,9 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + b * st.k[0] + h * st.k[2];
   const float* vb = v + b * st.v[0] + h * st.v[2];
-  load_tile_f32<D>(Qs, D, q + b * st.q[0] + h * st.q[2], st.q[1], q0, T_len, tid);
-  load_tile_f32<D>(dOs, D, dout + b * st.dout[0] + h * st.dout[2], st.dout[1], q0, T_len, tid);
+  load_tile_f32<D, kRows>(Qs, D, q + b * st.q[0] + h * st.q[2], st.q[1], q0, T_len, tid);
+  load_tile_f32<D, kRows>(dOs, D, dout + b * st.dout[0] + h * st.dout[2], st.dout[1], q0, T_len,
+                          tid);
   if (delta_out) __syncthreads();  // dO is staged for Delta
   const float* ob = delta_out ? o + b * st.o[0] + h * st.o[2] : nullptr;
 
@@ -1043,11 +1093,11 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(T_len, q0 + kTile) : T_len;
+  const int kv_end = causal ? min(T_len, q0 + kRows) : T_len;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // the previous K/V tile is consumed (and Q, dO are staged)
-    load_tile_f32<D>(Ks, D + 1, kb, st.k[1], k0, T_len, tid);
-    load_tile_f32<D>(Vs, D + 1, vb, st.v[1], k0, T_len, tid);
+    load_tile_f32<D, kTile>(Ks, D + 1, kb, st.k[1], k0, T_len, tid);
+    load_tile_f32<D, kTile>(Vs, D + 1, vb, st.v[1], k0, T_len, tid);
     __syncthreads();
 
     // s[r][c], dp[r][c]: row row0 + r against key k0 + lane + 32c
@@ -1122,8 +1172,9 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 constexpr size_t dkv_f32_smem() {
-  // K, V [64][D]; P, dS [64][64]; Q, dO [64][D + 1]; LSE, Delta [64]
-  return sizeof(float) * (2 * kTile * D + 2 * kTile * kTile + 2 * kTile * (D + 1) + 2 * kTile);
+  // K, V [rows][D]; P, dS [rows][64]; Q, dO [64][D + 1]; LSE, Delta [64]
+  constexpr int kRows = f32_rows<D>();
+  return sizeof(float) * (2 * kRows * D + 2 * kRows * kTile + 2 * kTile * (D + 1) + 2 * kTile);
 }
 
 template <int D>
@@ -1134,12 +1185,14 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dk, float* __restrict__ dv, int H, int T_len,
                      int causal, float scale, Strides st) {
   constexpr int kCols = D / 32;
+  constexpr int kRows = f32_rows<D>();
+  constexpr int kRowsPerWarp = kRows / (kF32Threads / 32);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + kTile * D;
-  float* Ps = Vs + kTile * D;
-  float* dSs = Ps + kTile * kTile;
-  float* Qs = dSs + kTile * kTile;
+  float* Vs = Ks + kRows * D;
+  float* Ps = Vs + kRows * D;
+  float* dSs = Ps + kRows * kTile;
+  float* Qs = dSs + kRows * kTile;
   float* dOs = Qs + kTile * (D + 1);
   float* lse_s = dOs + kTile * (D + 1);
   float* delta_s = lse_s + kTile;
@@ -1147,7 +1200,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -1157,8 +1210,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* ob = dout + b * st.dout[0] + h * st.dout[2];
   const float* lse_b = lse + static_cast<long long>(bh) * T_len;
   const float* delta_b = delta + static_cast<long long>(bh) * T_len;
-  load_tile_f32<D>(Ks, D, k + b * st.k[0] + h * st.k[2], st.k[1], k0, T_len, tid);
-  load_tile_f32<D>(Vs, D, v + b * st.v[0] + h * st.v[2], st.v[1], k0, T_len, tid);
+  load_tile_f32<D, kRows>(Ks, D, k + b * st.k[0] + h * st.k[2], st.k[1], k0, T_len, tid);
+  load_tile_f32<D, kRows>(Vs, D, v + b * st.v[0] + h * st.v[2], st.v[1], k0, T_len, tid);
 
   float dk_acc[kRowsPerWarp][kCols], dv_acc[kRowsPerWarp][kCols];
 #pragma unroll
@@ -1168,8 +1221,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int q0 = causal ? k0 : 0; q0 < T_len; q0 += kTile) {
     __syncthreads();  // the previous Q/dO tile is consumed (and K, V are staged)
-    load_tile_f32<D>(Qs, D + 1, qb, st.q[1], q0, T_len, tid);
-    load_tile_f32<D>(dOs, D + 1, ob, st.dout[1], q0, T_len, tid);
+    load_tile_f32<D, kTile>(Qs, D + 1, qb, st.q[1], q0, T_len, tid);
+    load_tile_f32<D, kTile>(dOs, D + 1, ob, st.dout[1], q0, T_len, tid);
     for (int i = tid; i < kTile; i += kF32Threads) {
       const bool ok = q0 + i < T_len;
       lse_s[i] = ok ? lse_b[q0 + i] : 0.f;
@@ -1281,12 +1334,12 @@ T* out(void* p) {
   return static_cast<T*>(p);
 }
 
-// the f32 kernels: one block per (64-row tile, b*h)
+// the f32 kernels: one block per (`rows`-row tile, b*h)
 template <auto Kernel, typename... Args>
-int launch(const Call& c, size_t smem, Args... args) {
+int launch(const Call& c, int rows, size_t smem, Args... args) {
   const cudaError_t err = allow_smem<Kernel>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((c.T_len + kTile - 1) / kTile, c.BH);
+  const dim3 grid((c.T_len + rows - 1) / rows, c.BH);
   Kernel<<<grid, kF32Threads, smem, c.stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1310,14 +1363,16 @@ cudaError_t make_maps(BwdMaps* m, const Call& c, int q_rows, int kv_rows) {
   return err;
 }
 
-int dq_bf16_64(const Call& c) {
+// one warpgroup a block: D=64, 192 and 256
+template <int D>
+int dq_bf16(const Call& c) {
   BwdMaps maps;
-  cudaError_t err = make_maps<64>(&maps, c, kTile, kTile);
+  cudaError_t err = make_maps<D>(&maps, c, kTile, kTile);
   if (err == cudaSuccess)
-    err = allow_smem<flash_dq_bf16_kernel<64>>(static_cast<int>(dq_bf16_smem<64>()));
+    err = allow_smem<flash_dq_bf16_kernel<D>>(static_cast<int>(dq_bf16_smem<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(c.BH, (c.T_len + kTile - 1) / kTile);
-  flash_dq_bf16_kernel<64><<<grid, kMmaThreads, dq_bf16_smem<64>(), c.stream>>>(
+  flash_dq_bf16_kernel<D><<<grid, kMmaThreads, dq_bf16_smem<D>(), c.stream>>>(
       maps, in<float>(c.lse), out<float>(c.delta), c.o != nullptr, out<bf16>(c.out0), c.H,
       c.T_len, c.causal, c.scale);
   return static_cast<int>(cudaGetLastError());
@@ -1337,17 +1392,30 @@ int dq_bf16_128(const Call& c) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int dkv_bf16_64(const Call& c) {
-  BwdMaps maps;
-  cudaError_t err = make_maps<64>(&maps, c, kTile, kTile);
-  if (err == cudaSuccess)
-    err = allow_smem<flash_dkv_bf16_kernel<64>>(static_cast<int>(dkv_bf16_smem<64>()));
+template <int D, int kOut>
+int dkv_bf16_launch(const BwdMaps& maps, const Call& c) {
+  const cudaError_t err =
+      allow_smem<flash_dkv_bf16_kernel<D, kOut>>(static_cast<int>(dkv_bf16_smem<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(c.BH, (c.T_len + kTile - 1) / kTile);
-  flash_dkv_bf16_kernel<64><<<grid, kMmaThreads, dkv_bf16_smem<64>(), c.stream>>>(
+  flash_dkv_bf16_kernel<D, kOut><<<grid, kMmaThreads, dkv_bf16_smem<D>(), c.stream>>>(
       maps, in<float>(c.lse), in<float>(c.delta), out<bf16>(c.out0), out<bf16>(c.out1), c.H,
       c.T_len, c.causal, c.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// one warpgroup a block: dK and dV in one launch at D=64, in two above
+template <int D>
+int dkv_bf16(const Call& c) {
+  BwdMaps maps;
+  const cudaError_t err = make_maps<D>(&maps, c, kTile, kTile);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (D == 64) {
+    return dkv_bf16_launch<D, kOutDV | kOutDK>(maps, c);
+  } else {
+    const int e = dkv_bf16_launch<D, kOutDV>(maps, c);
+    return e != 0 ? e : dkv_bf16_launch<D, kOutDK>(maps, c);
+  }
 }
 
 int dkv_bf16_128(const Call& c) {
@@ -1367,14 +1435,15 @@ int dkv_bf16_128(const Call& c) {
 template <int D>
 int dq_f32(const Call& c) {
   return launch<flash_dq_f32_kernel<D>>(
-      c, dq_f32_smem<D>(), in<float>(c.q), in<float>(c.k), in<float>(c.v), in<float>(c.dout),
+      c, f32_rows<D>(), dq_f32_smem<D>(), in<float>(c.q), in<float>(c.k), in<float>(c.v), in<float>(c.dout),
       in<float>(c.o), in<float>(c.lse), out<float>(c.delta), c.o != nullptr, out<float>(c.out0),
       c.H, c.T_len, c.causal, c.scale, c.st);
 }
 
 template <int D>
 int dkv_f32(const Call& c) {
-  return launch<flash_dkv_f32_kernel<D>>(c, dkv_f32_smem<D>(), in<float>(c.q), in<float>(c.k),
+  return launch<flash_dkv_f32_kernel<D>>(c, f32_rows<D>(), dkv_f32_smem<D>(), in<float>(c.q),
+                                         in<float>(c.k),
                                          in<float>(c.v), in<float>(c.dout), in<float>(c.lse),
                                          in<float>(c.delta), out<float>(c.out0),
                                          out<float>(c.out1), c.H, c.T_len, c.causal, c.scale,
@@ -1399,11 +1468,15 @@ extern "C" int ray_tpu_flash_bwd(int kernel, const void* q, const void* k, const
                                  long long do_st, long long do_sh, long long o_sb, long long o_st,
                                  long long o_sh, void* stream) {
   using Launcher = int (*)(const Call&);
-  static const Launcher launchers[2][2][2] = {  // [kernel][dtype][D == 128]
-      {{dq_f32<64>, dq_f32<128>}, {dq_bf16_64, dq_bf16_128}},
-      {{dkv_f32<64>, dkv_f32<128>}, {dkv_bf16_64, dkv_bf16_128}},
+  // [kernel][dtype][head dim 64, 128, 192, 256]
+  static const Launcher launchers[2][2][4] = {
+      {{dq_f32<64>, dq_f32<128>, dq_f32<192>, dq_f32<256>},
+       {dq_bf16<64>, dq_bf16_128, dq_bf16<192>, dq_bf16<256>}},
+      {{dkv_f32<64>, dkv_f32<128>, dkv_f32<192>, dkv_f32<256>},
+       {dkv_bf16<64>, dkv_bf16_128, dkv_bf16<192>, dkv_bf16<256>}},
   };
-  if (kernel < 0 || kernel > 1 || dtype < 0 || dtype > 1 || (D != 64 && D != 128) ||
+  const int d = D == 64 ? 0 : (D == 128 ? 1 : (D == 192 ? 2 : (D == 256 ? 3 : -1)));
+  if (kernel < 0 || kernel > 1 || dtype < 0 || dtype > 1 || d < 0 ||
       (kernel == 1 && o != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{{q_sb, q_st, q_sh},
@@ -1413,7 +1486,7 @@ extern "C" int ray_tpu_flash_bwd(int kernel, const void* q, const void* k, const
                    {o_sb, o_st, o_sh}};
   const Call c{q,     k, v,     dout,   o,        lse, delta, out0, out1, B * H, H, T_len, causal,
                scale, st, static_cast<cudaStream_t>(stream)};
-  return launchers[kernel][dtype][D == 128](c);
+  return launchers[kernel][dtype][d](c);
 }
 
 extern "C" const char* ray_tpu_cuda_error_string(int code) {

@@ -63,6 +63,16 @@
 // consumer in flight; and with one block an SM, each block's start (Q and
 // the first K/V tile) and end are hidden behind no other block's products.
 //
+// At D=192 and 256 (the reference's _use_pallas takes every D % 64 == 0 up
+// to 256) the same kernel is instantiated with two changes.  A consumer's
+// 64 x D accumulator is 96 or 128 registers a thread, so Q no longer fits
+// beside it as register A operands: S = Q K^T reads both operands from
+// shared memory (each consumer its own 64 rows of the Q tile).  And at
+// D=256 the ring has two stages, since three and the Q tile would be
+// 263 KB of shared memory.  O += P V is issued as products of 128 columns
+// (and one of 64 at D=192), which keep one m64nD product's accumulator
+// layout (hopper.cuh wgmma_rs_tb_wide).
+//
 // In f32 the kernel does its arithmetic on the CUDA cores (67 TFLOP/s),
 // the simple version kept for f32 parity with the reference.
 //
@@ -71,7 +81,7 @@
 // multiples of 8 elements, which TMA needs and the wrapper checks), so the
 // q/k/v views that GPT-2 splits out of one fused qkv projection need no
 // copy.  O is written contiguous [B, T, H, D] in the input type, LSE
-// contiguous [B, H, T] in f32.  Any T >= 1, D in {64, 128}.
+// contiguous [B, H, T] in f32.  Any T >= 1, D in {64, 128, 192, 256}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,10 +122,12 @@ constexpr long long kGroupBytes = 16ll << 20;  // K and V of the heads launched 
 // Stages of the K/V ring: the producer runs this many tiles ahead.  A D=64
 // tile is half the bytes and half the products of a D=128 one, so its
 // loads need more tiles in flight to stay hidden (4 against 3 measured
-// faster at every D=64 shape, `flash_bwd_ab.py`).
+// faster at every D=64 shape, `flash_bwd_ab.py`).  At D=256 three stages
+// and the 128-row Q tile are 263 KB, over the 227 KB a block may hold:
+// two stages (197 KB); D=192 keeps three (197 KB).
 template <int D>
 __host__ __device__ constexpr int ws_stages() {
-  return D == 64 ? 4 : 3;
+  return D == 64 ? 4 : (D == 256 ? 2 : 3);
 }
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -191,6 +203,10 @@ flash_fwd_bf16_ws_kernel(const __grid_constant__ FwdMaps maps, float* __restrict
                          int H, int T_len, int causal, float scale_log2, int group_heads) {
   constexpr int kAtoms = D / 64;
   constexpr int kWsStages = ws_stages<D>();
+  // Q as register A operands of S = Q K^T up to D=128; above, a consumer's
+  // 64 x D accumulator (96 or 128 registers a thread) leaves no room for
+  // them, and S reads Q from shared memory too
+  constexpr bool kQRegs = D <= 128;
   constexpr uint32_t kQAtom = kWsRows * kAtomRow;   // bytes of one 128-row Q atom tile
   constexpr uint32_t kKVAtom = kWsKeys * kAtomRow;  // bytes of one K or V atom tile
   constexpr uint32_t kStageBytes = 2 * kAtoms * kKVAtom;  // K, then V
@@ -285,16 +301,24 @@ flash_fwd_bf16_ws_kernel(const __grid_constant__ FwdMaps maps, float* __restrict
   };
 
   // this warpgroup's Q rows as the A operand of S = Q K^T, in registers for
-  // the whole loop: S reads only the K tile from shared memory
+  // the whole loop up to D=128 (S then reads only the K tile from shared
+  // memory), else read from its rows of the shared Q tile
   mbar_wait_spin(q_bar, 0);
-  uint32_t aq[D / 16][4];
-  load_a_frags<D>(sQ + wg * kBlockM * kAtomRow, kQAtom, aq, warp, g, tq);
+  const uint32_t sQw = sQ + wg * kBlockM * kAtomRow;
+  uint32_t aq[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) load_a_frags<D>(sQw, kQAtom, aq, warp, g, tq);
   // S = Q K^T of tile j, issued as one commit group
   auto issue_s = [&](int j, float (&sc)[kWsKeys / 2]) {
     const uint32_t sK = sRing + (j % kWsStages) * kStageBytes;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_rs(sc, aq[kk], desc_sw128(sK + (kk / 4) * kKVAtom + (kk % 4) * 32, 16, 1024), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t desc_k = desc_sw128(sK + (kk / 4) * kKVAtom + (kk % 4) * 32, 16, 1024);
+      if constexpr (kQRegs)
+        wgmma_rs(sc, aq[kk], desc_k, kk > 0);
+      else
+        wgmma_ss(sc, desc_sw128(sQw + (kk / 4) * kQAtom + (kk % 4) * 32, 16, 1024), desc_k,
+                 kk > 0);
+    }
     wgmma_commit();
   };
   // O += P V of tile j, issued as one commit group: V read MN-major through
@@ -304,7 +328,7 @@ flash_fwd_bf16_ws_kernel(const __grid_constant__ FwdMaps maps, float* __restrict
     const uint32_t sV = sRing + (j % kWsStages) * kStageBytes + kAtoms * kKVAtom;
 #pragma unroll
     for (int kk = 0; kk < kWsKeys / 16; ++kk)
-      wgmma_rs_tb(acc, p[kk], desc_sw128(sV + kk * 16 * kAtomRow, kKVAtom, 1024));
+      wgmma_rs_tb_wide<D>(acc, p[kk], sV + kk * 16 * kAtomRow, kKVAtom);
     wgmma_commit();
   };
 
@@ -316,10 +340,12 @@ flash_fwd_bf16_ws_kernel(const __grid_constant__ FwdMaps maps, float* __restrict
 
   // n_tiles + 1 events, the same in both consumers: event e issues S of
   // tile e and O += P V of tile e - 1 where this consumer's rows see them.
-  // At D=128 the two consumers take turns to issue them (named barriers 1
-  // and 2, "ping-pong"), so one runs its softmax while the other's products
-  // run; at D=64 they issue unordered, which measured faster there.
-  constexpr bool kPingPong = D == 128;
+  // From D=128 up the two consumers take turns to issue them (named
+  // barriers 1 and 2, "ping-pong"), so one runs its softmax while the
+  // other's products run; at D=64 they issue unordered, which measured
+  // faster there (at D=192 and 256, whose products are longer still,
+  // unordered was not measured).
+  constexpr bool kPingPong = D >= 128;
   auto turn = [&]() {
     if constexpr (kPingPong) named_barrier_sync(1 + wg, 2 * kMmaThreads);
   };
@@ -615,8 +641,12 @@ extern "C" int ray_tpu_flash_fwd(const void* q, const void* k, const void* v, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
   if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
+  if (dtype == 0 && D == 192) return launch_f32<192>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
+  if (dtype == 0 && D == 256) return launch_f32<256>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
   if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
   if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
+  if (dtype == 1 && D == 192) return launch_bf16<192>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
+  if (dtype == 1 && D == 256) return launch_bf16<256>(q, k, v, o, lse, B, H, T_len, causal, scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,9 +7,9 @@
 //
 // Tiles.  A [B, T, H, D] bf16 tensor is read in boxes of `rows` x 64
 // columns of one (b, h): a 64-column bf16 row is 128 bytes, exactly one
-// 128-byte swizzle atom, so D=64 is one box and D=128 two, each landing
-// as its own [rows][64] tile, 128-byte swizzled, at a 1024-byte-aligned
-// shared address.  TMA fills rows at or past T with zeros; the kernels
+// 128-byte swizzle atom, so a head of D columns is D/64 boxes (one at
+// D=64, four at D=256), each landing as its own [rows][64] tile, 128-byte
+// swizzled, at a 1024-byte-aligned shared address.  TMA fills rows at or past T with zeros; the kernels
 // mask those keys themselves, since a zero key scores 0, not -inf.
 //
 // wgmma fragments.  The f32 accumulator of wgmma m64nNk16 holds, in warp w
@@ -418,6 +418,25 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N] for N in {64, 128, 192, 256}, B MN-major
+// at shared address `b` in 64-column atoms `atom` bytes apart, issued as
+// products of 128 columns and one of 64 for the rest.  The accumulator of
+// a product of columns [c, c + n) is d[c/2 .. c/2 + n/2): chunk j of it is
+// chunk c/8 + j of the whole, so d keeps the layout of one m64nNk16
+// product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb_wide(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                 uint32_t b, uint32_t atom) {
+  static_assert(N % 64 == 0 && N <= 256, "N: 64, 128, 192 or 256");
+#pragma unroll
+  for (int c = 0; c + 128 <= N; c += 128)
+    wgmma_rs_tb(*reinterpret_cast<float(*)[64]>(&d[c / 2]), a,
+                desc_sw128(b + (c / 64) * atom, atom, 1024));
+  if constexpr (N % 128 != 0)
+    wgmma_rs_tb(*reinterpret_cast<float(*)[32]>(&d[N / 2 - 32]), a,
+                desc_sw128(b + (N / 64 - 1) * atom, atom, 1024));
 }
 
 // ---------------------------------------------------------------------------

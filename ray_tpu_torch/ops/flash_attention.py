@@ -34,7 +34,9 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30  # the reference's mask value
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_HEAD_DIMS = (64, 128)  # the head dims the kernels take
+# the head dims the kernels take: those the reference's _use_pallas sends
+# to its Pallas kernels (D % 64 == 0 and D <= 256)
+FLASH_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,7 +86,7 @@ def _check_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
     if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash attention takes head dim 64 or 128, got {D}")
+        raise ValueError(f"flash attention takes head dim 64, 128, 192 or 256, got {D}")
     if T < 1 or B * H < 1 or B * H > 65535:
         raise ValueError(f"unsupported shape {tuple(q.shape)} (need T >= 1, 1 <= B*H <= 65535)")
     for name, t in (("q", q), *others):
@@ -151,7 +153,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse [B, H, T] float32).
 
     A CUDA tensor launches the kernel on the current stream (any T >= 1,
-    D in {64, 128}, float32 or bfloat16, strided q/k/v whose last dimension
+    D in {64, 128, 192, 256}, float32 or bfloat16, strided q/k/v whose last dimension
     is contiguous; in bfloat16 16-byte-aligned with strides that are
     multiples of 8) and raises on anything else; a CPU tensor runs the
     plain version.  bfloat16 runs on the tensor cores with its

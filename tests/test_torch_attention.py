@@ -38,11 +38,12 @@ def _to_bh(a):
     return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, T, D))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_flash_fwd_matches_pallas_interpret(causal, D):
-    """At both head dims the kernel takes: D=128 is Llama-1B's, whose B1
-    runs a warp-specialised kernel on the card as D=64's does."""
+    """At every head dim the kernel takes, those the reference's
+    _use_pallas sends to its Pallas kernels: D=128 is Llama-1B's, D=256
+    the one at Gemma-2B's widths."""
     B, T, H = 1, 128, 2
     q, k, v = _qkv(B, T, H, D, seed=1)
     out, lse = _flash_fwd_impl(
@@ -97,13 +98,15 @@ def test_plain_flash_fwd_strided_views_match_contiguous():
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["head_dim", "dtype", "shape", "last_stride", "bf16_align",
-                                  "grad"])
+@pytest.mark.parametrize("case", ["head_dim", "head_dim_320", "dtype", "shape", "last_stride",
+                                  "bf16_align", "grad"])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 64, seed=5))
     err = ValueError
     if case == "head_dim":
         q, k, v = (t[..., :32] for t in (q, k, v))
+    elif case == "head_dim_320":  # a multiple of 64 above the reference's 256
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 320, seed=5))
     elif case == "dtype":
         q, k, v = (t.half() for t in (q, k, v))
         err = TypeError
@@ -138,11 +141,13 @@ def _from_bh(a, B, H):
     return np.asarray(a).reshape(B, H, T, D).transpose(0, 2, 1, 3)
 
 
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_flash_bwd_matches_pallas_interpret(causal):
+def test_plain_flash_bwd_matches_pallas_interpret(causal, D):
     """The plain backward (B2 and B3's plain versions) against the Pallas
-    dq and dkv kernels, from the same O, LSE and dO."""
-    B, T, H, D = 1, 128, 2, 64
+    dq and dkv kernels, from the same O, LSE and dO, at every head dim the
+    kernels take."""
+    B, T, H = 1, 128, 2
     q, k, v, do = _qkv(B, T, H, D, seed=6) + _qkv(B, T, H, D, seed=7)[:1]
     scale = 1.0 / np.sqrt(D)
     kw = dict(block_q=64, block_k=64, scale=scale, causal=causal, interpret=True)
@@ -159,13 +164,14 @@ def test_plain_flash_bwd_matches_pallas_interpret(causal):
         np.testing.assert_allclose(a.numpy(), _from_bh(b, B, H), err_msg=name, **TOL)
 
 
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_grads_match_jax_grad(causal):
+def test_flash_attention_grads_match_jax_grad(causal, D):
     """torch.autograd through the port's flash_attention (Function over the
     plain forward and backward on the CPU) against jax.grad of the
     reference's flash_attention (custom_vjp over the Pallas kernels in
-    interpret mode)."""
-    B, T, H, D = 1, 128, 2, 64
+    interpret mode), at every head dim the kernels take."""
+    B, T, H = 1, 128, 2
     q, k, v, w = _qkv(B, T, H, D, seed=8) + _qkv(B, T, H, D, seed=9)[:1]
 
     def f(q, k, v):
@@ -211,10 +217,11 @@ def test_backward_on_cpu_takes_the_plain_versions():
 
 
 @pytest.mark.parametrize("case", ["do_shape", "do_dtype", "do_last_stride", "lse_shape",
-                                  "lse_dtype", "delta_layout"])
+                                  "lse_dtype", "delta_layout", "head_dim_320"])
 def test_flash_bwd_wrapper_rejects_what_the_kernels_do_not_take(case):
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 64, seed=13))
-    do = torch.from_numpy(_qkv(1, 8, 2, 64, seed=14)[0])
+    D = 320 if case == "head_dim_320" else 64  # a multiple of 64 above the reference's 256
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, D, seed=13))
+    do = torch.from_numpy(_qkv(1, 8, 2, D, seed=14)[0])
     lse = torch.zeros(1, 2, 8)
     delta = torch.zeros(1, 2, 8)
     if case == "do_shape":
@@ -227,19 +234,19 @@ def test_flash_bwd_wrapper_rejects_what_the_kernels_do_not_take(case):
         lse = lse[..., :4]
     elif case == "lse_dtype":
         lse = lse.double()
-    else:
+    elif case == "delta_layout":
         delta = torch.zeros(1, 8, 2).transpose(1, 2)  # [B, H, T] but not contiguous
     with pytest.raises(ValueError):
         fa._check_bwd(q, k, v, do, lse, delta)
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 def test_flash_bwd_with_delta_in_dq_matches_pallas_interpret(D, causal):
     """The backward as the card runs it, with Delta formed by the dq
     wrapper (on CPU tensors its plain version, ``_delta``, stands for the
     kernel's prologue) and handed to the dkv wrapper, at a ragged T and
-    both head dims: the Delta it returns against rowsum(dO * O) in numpy,
+    every head dim: the Delta it returns against rowsum(dO * O) in numpy,
     and dq, dk, dv against the Pallas dq and dkv kernels in interpret mode
     from the same O, LSE and dO."""
     B, T, H = 1, 100, 2

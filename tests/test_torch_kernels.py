@@ -109,12 +109,12 @@ def test_flash_attention_function_on_card(dtype):
 
 
 # The bf16 kernels load their tiles by TMA, which fills rows past T with
-# zeros, in tiles of 64 rows (B1's K/V ring; B2 and B3 at D=64; the ring
-# tiles of B2 and B3 at D=128) and blocks of 128 rows over two warpgroups
-# (B1's queries at both head dims, stored by TMA, which writes no row past
-# T; the queries of B2 and the keys of B3 at D=128): T on both sides of the
-# first and second edges of each, B=2 with q/k/v strided views of one fused
-# projection, both head dims, causal and not.  In B1, T = 1, 31, 33 and 63
+# zeros, in tiles of 64 rows (B1's K/V ring; B2 and B3 at D=64, 192 and 256;
+# the ring tiles of B2 and B3 at D=128) and blocks of 128 rows over two
+# warpgroups (B1's queries at every head dim, stored by TMA, which writes no
+# row past T; the queries of B2 and the keys of B3 at D=128): T on both
+# sides of the first and second edges of each, B=2 with q/k/v strided views
+# of one fused projection, every head dim, causal and not.  In B1, T = 1, 31, 33 and 63
 # leave the second consumer warpgroup no valid row and T = 65 one;
 # 127/129 and 255/257 cover the block edges.
 EDGE_TS = [1, 31, 33, 63, 65, 127, 129, 255, 257, 1000]
@@ -129,7 +129,7 @@ def _fused_qkv(B, T, D, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("T", EDGE_TS)
 def test_flash_fwd_bf16_tile_edges_on_card(T, D, causal):
     """B1 in bf16 against its plain version at the tile edges (tolerances
@@ -147,7 +147,7 @@ def test_flash_fwd_bf16_tile_edges_on_card(T, D, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("T", EDGE_TS)
 def test_flash_bwd_bf16_tile_edges_on_card(T, D, causal):
     """B2 and B3 in bf16 against their plain versions at the tile edges,
@@ -195,7 +195,7 @@ def test_flash_bf16_head_major_views_on_card(T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 def test_flash_fwd_bf16_is_deterministic_on_card(D):
     """B1 sums each O row over the key tiles in a fixed order within one
     warpgroup, with no atomics: two calls on the same bf16 inputs give
@@ -228,13 +228,15 @@ def test_flash_dq_bf16_is_deterministic_on_card():
 
 
 @pytest.mark.cuda
-def test_flash_dkv_bf16_d128_is_deterministic_on_card():
-    """B3 at D=128 sums each dK and dV row over the query tiles in a fixed
-    order, each of two warpgroups its own 64 keys, with no atomics: two
+@pytest.mark.parametrize("D", [128, 192, 256])
+def test_flash_dkv_bf16_d128_is_deterministic_on_card(D):
+    """B3 sums each dK and dV row over the query tiles in a fixed order,
+    with no atomics: at D=128 each of two warpgroups its own 64 keys, at
+    D=192 and 256 dV and dK in two launches of one warpgroup each.  Two
     calls on the same bf16 inputs give bitwise equal dK and dV."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
-    q, k, v, do = _fused_qkv(2, 1000, 128, seed=6)
+    q, k, v, do = _fused_qkv(2, 1000, D, seed=6)
     o, lse = fa.flash_attention_fwd_reference(q, k, v)
     delta = fa._delta(o, do)
     first = fa.flash_attention_dkv(q, k, v, do, lse, delta)
@@ -247,7 +249,7 @@ def test_flash_dkv_bf16_d128_is_deterministic_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 def test_flash_bwd_forms_delta_in_dq_on_card(monkeypatch, D, dtype):
     """On the card the backward never calls the torch Delta (patched here
     to raise): B2 forms it in its prologue, one launch each of B2 and B3.
@@ -276,6 +278,42 @@ def test_flash_bwd_forms_delta_in_dq_on_card(monkeypatch, D, dtype):
     assert _rel_err(delta, want_delta) <= 1e-5
     assert torch.equal(dq, got[0])
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [100, 257])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [192, 256])
+def test_flash_kernels_at_wide_head_dims_on_card(D, dtype, causal, T):
+    """B1, B2 forming Delta, and B3 at the head dims 192 and 256 (where the
+    reference's _use_pallas runs its Pallas kernels too) against their
+    plain versions, both dtypes, causal and not, at ragged T: one launch
+    each, O to 1e-4 (f32) or 2e-2 (bf16) and the LSE to 1e-4 or 1e-3,
+    Delta to 1e-5 of max |Delta|, each gradient to BWD_TOL of its largest
+    entry (tolerances as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with nvcc (CUDA kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(D + T + causal)
+    q, k, v, do = (torch.randn(2, T, 4, D, generator=g, device="cuda").to(dt) for _ in range(4))
+    counts = lambda: (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,  # noqa: E731
+                      fa.flash_attention_dkv.launches)
+    before = counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    dq, delta = fa.flash_attention_dq(q, k, v, do, lse, causal=causal, o=out)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    o_tol, l_tol = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 1e-3)
+    assert (out.float() - ref_out.float()).abs().max().item() <= o_tol
+    assert (lse - ref_lse).abs().max().item() <= l_tol
+    assert _rel_err(delta, fa._delta(out, do)) <= 1e-5
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert a.dtype == dt and a.shape == q.shape, name
         assert _rel_err(a, b) <= BWD_TOL[dtype], name
 
 
@@ -373,12 +411,15 @@ def test_llama_block_on_card_matches_cpu():
         assert _rel_err(a, b) <= 1e-3
 
 
-@pytest.mark.parametrize("D, path", [(32, "plain"), (64, "flash"), (128, "flash")])
+@pytest.mark.parametrize("D, path", [(32, "plain"), (64, "flash"), (128, "flash"),
+                                     (192, "flash"), (256, "flash"), (96, "plain"),
+                                     (320, "plain")])
 def test_causal_attention_dispatch_by_head_dim(monkeypatch, D, path):
-    """causal_attention sends the head dims the kernels take (64, 128) to
-    the flash wrapper and every other one to the einsum path, as the
-    reference sends shapes its Pallas kernel does not fit to its einsum
-    path; the choice is on the shape, so it holds on the CPU too."""
+    """causal_attention sends the head dims the kernels take (64, 128, 192,
+    256: D % 64 == 0 and D <= 256, as the reference's _use_pallas) to the
+    flash wrapper and every other one to the einsum path, as the reference
+    sends shapes its Pallas kernel does not fit to its einsum path; the
+    choice is on the shape, so it holds on the CPU too."""
     from ray_tpu_torch.ops import attention
 
     calls = []
@@ -389,6 +430,20 @@ def test_causal_attention_dispatch_by_head_dim(monkeypatch, D, path):
     q = torch.zeros(1, 8, 2, D)
     attention.causal_attention(q, q, q)
     assert calls == [path]
+
+
+@pytest.mark.parametrize("D, wrappers", [(64, True), (128, True), (192, True), (256, True),
+                                         (96, False), (320, False)])
+def test_ring_attention_picks_the_kernels_by_head_dim(D, wrappers):
+    """Ring attention's blocks go through the kernels' wrappers at the head
+    dims the kernels take, 192 and 256 included, and through the plain
+    versions at every other one, as causal_attention's dispatch."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    want = ((fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv) if wrappers
+            else (fa.flash_attention_fwd_reference, fa.flash_attention_dq_reference,
+                  fa.flash_attention_dkv_reference))
+    assert ra._kernels(D) == want
 
 
 @pytest.mark.cuda

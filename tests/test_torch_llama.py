@@ -207,3 +207,34 @@ def test_mesh_raises_not_implemented():
         got = tllama.init_model(_tcfg(sp_axis="sp"), torch.Generator().manual_seed(0), "cpu")(toks)
         want = tllama.init_model(_tcfg(), torch.Generator().manual_seed(0), "cpu")(toks)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d_head", [192, 256])
+def test_wide_head_dims_over_one_kv_head_match(d_head):
+    """The head dims 192 and 256, which the reference's _use_pallas sends
+    to its Pallas kernels and the port's flash path now takes (256 is
+    Gemma-2B's, over one KV head), at 2 query heads over 1 KV head: the
+    logits and the loss at 2e-4 and every gradient at 5e-3 against the
+    JAX Llama on the same perturbed weights."""
+    kw = dict(n_head=2, n_kv_head=1, d_model=2 * d_head)
+    jcfg = _jcfg(**kw)
+    params = jllama.init_params(jcfg, rng=jax.random.PRNGKey(1))
+    rng = np.random.default_rng(d_head)
+    tree = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape).astype(np.float32), params)
+    tok, tgt = _batch(8)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    jlogits = jllama.Llama(jcfg).apply({"params": jparams}, jnp.asarray(tok))
+    jloss, jgrads = jax.value_and_grad(jllama.loss_fn)(jparams, jnp.asarray(tok),
+                                                       jnp.asarray(tgt), jcfg)
+    cfg, model = _port(tree, **kw)
+    assert cfg.d_head == d_head
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tok).long())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **FWD_TOL)
+    tloss, tgrads = _port_grads(model, tok, tgt)
+    np.testing.assert_allclose(tloss, float(jloss), **FWD_TOL)
+    jgrads = llama_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads), cfg)
+    assert set(tgrads) == set(jgrads)
+    for name, g in tgrads.items():
+        np.testing.assert_allclose(g.numpy(), jgrads[name].numpy(), err_msg=name, **GRAD_TOL)
